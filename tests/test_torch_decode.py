@@ -1,0 +1,104 @@
+"""Port decode (ops/kernels/decode.py, models/heads.py) vs the JAX package's
+Pallas kernel in interpret mode and its XLA decode, mirroring
+tests/test_pallas_decode.py: rtol 1e-5 / atol 1e-6 (float32 transcendental
+rounding), labels equal. On CPU tensors the wrappers run the plain version
+and the kernel launch counter stays 0."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from yolo_tensorflow_tpu import config as C
+from yolo_tensorflow_tpu.models import heads as JH
+from yolo_tensorflow_tpu.models import specs as S
+from yolo_tensorflow_tpu.ops.pallas.decode import (decode_fused as
+                                                   jax_decode_fused)
+from yolo_tensorflow_tpu.ops.pallas.decode import (decode_scale_fused as
+                                                   jax_decode_scale_fused)
+from yolo_tensorflow_tpu_torch.models import heads as TH
+from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+
+import torch_parity  # noqa: F401  (caps torch threads per worker)
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _check(got, want):
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), **TOL)
+    np.testing.assert_array_equal(np.asarray(got[2]), np.asarray(want[2]))
+
+
+def _v3_scale(rng):
+    cfg = C.get_config("yolov3")
+    feat = rng.standard_normal((2, 13, 13, 3 * (5 + cfg.num_classes)),
+                               dtype=np.float32)
+    return cfg, feat, [cfg.anchors[i] for i in (6, 7, 8)]
+
+
+def test_v3_scale_matches_pallas_interpret(rng):
+    cfg, feat, anchors = _v3_scale(rng)
+    want = jax_decode_scale_fused(jnp.asarray(feat), anchors, cfg.input_size,
+                                  cfg.num_classes, interpret=True)
+    before = K.launches
+    got = K.decode_scale_fused(torch.from_numpy(feat), anchors,
+                               cfg.input_size, cfg.num_classes)
+    assert K.launches == before
+    _check(got, want)
+    _check(K.decode_scale_plain(torch.from_numpy(feat), anchors,
+                                cfg.input_size, cfg.num_classes), want)
+
+
+def test_v3_scale_matches_xla_decode(rng):
+    """Against heads.decode_v3_scale's materialized (N, C) scores, in both
+    packages."""
+    cfg, feat, anchors = _v3_scale(rng)
+    bx, conf, probs = JH.decode_v3_scale(jnp.asarray(feat), anchors,
+                                         cfg.input_size, cfg.num_classes)
+    scores = np.asarray(conf)[..., None] * np.asarray(probs)
+    want = (JH.xywh_to_xyxy(bx), scores.max(-1), scores.argmax(-1))
+    _check(K.decode_scale_fused(torch.from_numpy(feat), anchors,
+                                cfg.input_size, cfg.num_classes), want)
+    tb, tconf, tprobs = TH.decode_v3_scale(torch.from_numpy(feat), anchors,
+                                           cfg.input_size, cfg.num_classes)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(bx), **TOL)
+    np.testing.assert_allclose(tconf.numpy(), np.asarray(conf), **TOL)
+    np.testing.assert_allclose(tprobs.numpy(), np.asarray(probs), **TOL)
+
+
+def test_v2_matches_pallas_and_xla(rng):
+    cfg = C.get_config("yolov2-tiny-voc")
+    A, Cn = cfg.num_anchors, cfg.num_classes
+    feat = rng.standard_normal((2, 13, 13, A * (5 + Cn)), dtype=np.float32)
+    det = S.Detect(tuple(range(A)))
+    want = jax_decode_fused([(jnp.asarray(feat), det)], cfg, interpret=True)
+    got = K.decode_fused([(torch.from_numpy(feat), det)], cfg)
+    _check(got, want)
+
+    bx, conf, probs = JH.decode([(jnp.asarray(feat), det)], cfg)
+    scores = np.asarray(conf)[..., None] * np.asarray(probs)
+    _check(got, (JH.xywh_to_xyxy(bx), scores.max(-1), scores.argmax(-1)))
+
+
+def test_all_scales_match_decode_scored(rng):
+    """decode_fused == the plain path (heads.decode_scored + xyxy), in spec
+    order, for the three yolov3-416 scales; and == the JAX decode_scored."""
+    cfg = C.get_config("yolov3")
+    dets = [(rng.standard_normal((1, g, g, 255), dtype=np.float32),
+             S.Detect(m)) for g, m in ((13, (6, 7, 8)), (26, (3, 4, 5)),
+                                      (52, (0, 1, 2)))]
+    got = K.decode_fused([(torch.from_numpy(f), d) for f, d in dets], cfg)
+    assert got[0].shape == (1, 10647, 4)
+    boxes, scores, labels = TH.decode_scored(
+        [(torch.from_numpy(f), d) for f, d in dets], cfg)
+    _check(got, (TH.xywh_to_xyxy(boxes), scores, labels))
+    jb, js, jl = JH.decode_scored([(jnp.asarray(f), d) for f, d in dets], cfg)
+    _check(got, (JH.xywh_to_xyxy(jb), js, jl))
+
+
+def test_v1_head_raises():
+    cfg = C.get_config("yolov1")
+    with pytest.raises(NotImplementedError, match="yolov2/yolov1"):
+        K.decode_fused([(torch.zeros(1, 1470), S.Detect(()))], cfg)

@@ -1,0 +1,95 @@
+"""Shared inputs for the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Parameters are drawn with numpy (``engine.init_params`` of the port) and
+handed to both packages: the port takes them in its OIHW layout, the JAX
+package in HWIO. A small hand-built v3-style spec covers every layer type
+the port runs.
+"""
+
+import numpy as np
+import torch
+
+from yolo_tensorflow_tpu import config as C
+from yolo_tensorflow_tpu.models import specs as S
+from yolo_tensorflow_tpu_torch.io import weights as TW
+from yolo_tensorflow_tpu_torch.models import engine as TE
+
+# the tests run several pytest workers at once; keep each one's torch small
+torch.set_num_threads(2)
+
+NARROW_CLASSES = ("a", "b", "c", "d")
+
+
+def narrow_spec():
+    """v3-style net, 8-32 channels, 4 classes, 2 scales, using Conv (BN,
+    stride 2, leaky/relu/tanh, bias-only linear heads), MaxPool (VALID and
+    SAME), Route (select and concat, incl. the input), Shortcut, Upsample
+    and Detect."""
+    per_scale = 3 * (5 + len(NARROW_CLASSES))
+    return (
+        S.Conv(8, 3),                                  # 0  64x64x8
+        S.Conv(16, 3, stride=2),                       # 1  32x32x16
+        S.Conv(8, 1),                                  # 2
+        S.Conv(16, 3, act="tanh"),                     # 3
+        S.Shortcut(-3),                                # 4  32x32x16
+        S.MaxPool(2, 2),                               # 5  16x16x16
+        S.Conv(32, 3),                                 # 6
+        S.MaxPool(2, 1),                               # 7  SAME
+        S.Conv(16, 1),                                 # 8
+        S.Conv(per_scale, 1, bn=False, act="linear"),  # 9
+        S.Detect((3, 4, 5)),                           # 10 16x16
+        S.Route((8,)),                                 # 11
+        S.Conv(8, 1, act="relu"),                      # 12
+        S.Upsample(),                                  # 13 32x32x8
+        S.Route((-1, 4)),                              # 14 32x32x24
+        S.Conv(16, 3),                                 # 15
+        S.Conv(per_scale, 1, bn=False, act="linear"),  # 16
+        S.Detect((0, 1, 2)),                           # 17 32x32
+    )
+
+
+def narrow_config(input_size=64):
+    return C.ModelConfig(
+        name="narrow", dataset="custom", head=3, input_size=input_size,
+        anchors=C.V3_TINY_ANCHORS, anchor_units="pixel", class_softmax=False,
+        custom_classes=NARROW_CLASSES)
+
+
+def model(name, input_size):
+    """(cfg, specs) for a zoo model name or "narrow"."""
+    if name == "narrow":
+        return narrow_config(input_size), narrow_spec()
+    cfg = C.get_config(name, input_size=input_size)
+    return cfg, C.build_specs(cfg)
+
+
+def to_jax(params):
+    """Port-layout params (OIHW) -> the JAX package's layout (HWIO)."""
+    return {k: {**p, "w": np.ascontiguousarray(p["w"].transpose(2, 3, 1, 0))}
+            for k, p in params.items()}
+
+
+def folded_params(specs, input_size, seed=0):
+    """(port_params, jax_params), BN folded with darknet's formula."""
+    raw, stats = TE.init_params(specs, input_size, seed)
+    port = {}
+    for k, p in raw.items():
+        if "gamma" in p:
+            w, b = TW.fold_bn(p["w"], p["gamma"], p["beta"],
+                              stats[k]["mean"], stats[k]["var"])
+            port[k] = {"w": w, "b": b}
+        else:
+            port[k] = p
+    return port, to_jax(port)
+
+
+def write_weights(specs, input_size, path, seed=0):
+    """A seeded .weights file written by the port's writer."""
+    params, stats = TE.init_params(specs, input_size, seed)
+    TW.save_darknet_weights(specs, input_size, params, stats, path)
+    return params, stats
+
+
+def images(batch, size, seed=1):
+    return np.random.default_rng(seed).integers(0, 256, (batch, size, size, 3),
+                                                dtype=np.uint8)

@@ -1,0 +1,154 @@
+"""Darknet ``.weights`` byte stream <-> the port's folded parameters.
+
+Counterpart of yolo_tensorflow_tpu/io/weights.py for the conv path, which is
+all the v3 family holds. That module cannot be imported here: it pulls in
+the TPU package's engine, which imports jax. The file format is the same
+(src/parser.c:1241-1290):
+  header: int32 major, minor, revision, then ``seen`` (int32 before
+          major*10+minor >= 2, int64 from then on), then raw float32s;
+  per conv+BN layer: biases(beta)[n] scales(gamma)[n] mean[n] var[n]
+                     weights[(out, in, kh, kw) row-major];
+  per bias-only conv: biases[n] weights[...].
+The port keeps darknet's OIHW kernel order, so no transpose happens at load.
+BN folds into the conv at load with darknet's formula.
+"""
+
+from __future__ import annotations
+
+import io as _io
+import struct
+from typing import Dict, Tuple
+
+import numpy as np
+
+from yolo_tensorflow_tpu.models import specs as S
+from yolo_tensorflow_tpu_torch.models.engine import (check_supported,
+                                                      infer_shapes, layer_key)
+
+
+class WeightsFormatError(ValueError):
+    pass
+
+
+def read_header(fp):
+    """Read the darknet header, by darknet's version rule: ``seen`` is int64
+    iff major*10+minor >= 2."""
+    raw = fp.read(12)
+    if len(raw) != 12:
+        raise WeightsFormatError("truncated header")
+    major, minor, revision = struct.unpack("<3i", raw)
+    wide_seen = major * 10 + minor >= 2
+    seen = struct.unpack("<q" if wide_seen else "<i",
+                         fp.read(8 if wide_seen else 4))[0]
+    return {"major": major, "minor": minor, "revision": revision,
+            "seen": seen}
+
+
+def write_header(fp, *, major=0, minor=2, revision=0, seen=0):
+    fp.write(struct.pack("<3i", major, minor, revision))
+    wide_seen = major * 10 + minor >= 2
+    fp.write(struct.pack("<q" if wide_seen else "<i", seen))
+
+
+def _take(buf: np.ndarray, ptr: int, n: int) -> Tuple[np.ndarray, int]:
+    if ptr + n > buf.size:
+        raise WeightsFormatError(
+            f"weights file exhausted: need {ptr + n} floats, have {buf.size}")
+    return buf[ptr:ptr + n], ptr + n
+
+
+def fold_bn(w_oihw, gamma, beta, mean, var):
+    """Fold inference-mode BN into conv weight + bias by darknet's formula,
+    gamma/(sqrt(var)+1e-6) (normalize_cpu), the ground truth for .weights
+    files."""
+    inv = gamma / (np.sqrt(var) + 1e-6)
+    w = w_oihw * inv.reshape(-1, 1, 1, 1)
+    b = beta - mean * inv
+    return w.astype(np.float32), b.astype(np.float32)
+
+
+def _read_conv_sub(buf, ptr, cin, cout, k, bn):
+    """One conv layer (load_convolutional_weights order), folded."""
+    if bn:
+        beta, ptr = _take(buf, ptr, cout)
+        gamma, ptr = _take(buf, ptr, cout)
+        mean, ptr = _take(buf, ptr, cout)
+        var, ptr = _take(buf, ptr, cout)
+    else:
+        bias, ptr = _take(buf, ptr, cout)
+    flat, ptr = _take(buf, ptr, cout * cin * k * k)
+    w = flat.reshape(cout, cin, k, k)
+    if bn:
+        wf, bf = fold_bn(w, gamma, beta, mean, var)
+        return {"w": wf, "b": bf}, ptr
+    return {"w": np.array(w, np.float32), "b": bias.copy()}, ptr
+
+
+def load_darknet_weights(specs, input_size: int, path_or_bytes, *,
+                         in_channels: int = 3):
+    """Parse a .weights stream against ``specs`` -> (params, header), params
+    folded: {layer_key(i): {"w": OIHW f32, "b": f32}} per conv. Specs the
+    port cannot run raise NotImplementedError."""
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        fp = _io.BytesIO(path_or_bytes)
+    else:
+        fp = open(path_or_bytes, "rb")
+    with fp:
+        header = read_header(fp)
+        buf = np.frombuffer(fp.read(), dtype="<f4")
+
+    shapes = infer_shapes(specs, (1, input_size, input_size, in_channels))
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    ptr = 0
+    prev_c = in_channels
+    for i, spec in enumerate(specs):
+        if isinstance(spec, S.Conv):
+            params[layer_key(i)], ptr = _read_conv_sub(
+                buf, ptr, prev_c, spec.filters, spec.size, spec.bn)
+        prev_c = shapes[i][3]
+    if ptr != buf.size:
+        raise WeightsFormatError(
+            f"weights file has {buf.size - ptr} unconsumed floats "
+            f"(consumed {ptr}); spec/weights mismatch")
+    return params, header
+
+
+def save_darknet_weights(specs, input_size: int, params, batch_stats, path,
+                         *, seen: int = 0):
+    """Write unfolded darknet-form params (``engine.init_params``' form,
+    OIHW) to a .weights file, byte for byte what the TPU package's writer
+    makes of the same values in its HWIO layout."""
+    for i, spec in enumerate(specs):
+        check_supported(spec, i)       # convs are the only weighted type
+    with open(path, "wb") as fp:
+        write_header(fp, seen=seen)
+        for i, spec in enumerate(specs):
+            if not isinstance(spec, S.Conv):
+                continue
+            key = layer_key(i)
+            p = {k: np.asarray(v, np.float32) for k, v in params[key].items()}
+            if spec.bn:
+                if "gamma" not in p:
+                    raise ValueError(
+                        f"{key}: cannot serialize folded BN back to .weights")
+                st = batch_stats[key]
+                for arr in (p["beta"], p["gamma"], st["mean"], st["var"]):
+                    fp.write(np.asarray(arr, np.float32).tobytes())
+            else:
+                fp.write(p["b"].tobytes())
+            fp.write(np.ascontiguousarray(p["w"]).tobytes())
+
+
+def params_from_jax(np_params):
+    """TPU-package parameters (numpy, conv kernels HWIO) -> the port's layout
+    (OIHW); other arrays pass through. Conv layers only."""
+    out = {}
+    for key, p in np_params.items():
+        p = {k: np.asarray(v) for k, v in p.items()}
+        if "w_q" in p or p["w"].ndim != 4:
+            raise NotImplementedError(
+                f"{key}: only float conv parameters carry over (ROADMAP.md, "
+                "'int8' and 'yolov2/yolov1 layers')")
+        out[key] = {**p, "w": np.ascontiguousarray(p["w"].transpose(3, 2, 0,
+                                                                    1))}
+    return out
