@@ -1,19 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-Phases, one line each (a failed phase exits nonzero, and no phase's failure
-is caught):
+Phases, one line or more each (a failed phase exits nonzero, and no phase's
+failure is caught):
   1. device: the card, as nvidia-smi reports its name and power limit;
-  2. build:  nvcc builds the CUDA kernels from yolo_tensorflow_tpu_torch/csrc;
+  2. build:  nvcc builds both CUDA kernels (decode, int8 conv) from
+             yolo_tensorflow_tpu_torch/csrc, one nvcc process per source;
   3. kernel: the decode kernel against its plain PyTorch version on the same
              CUDA tensors, at the yolov3-416 head shapes, f32 and bf16, with
              both times from CUDA events;
   4. f32:    Detector("yolov3", <seeded .weights>).detect_batch at 416 on
              CUDA, through the decode kernel (its launch count is read around
              this run), against the same port on the CPU;
-  5. bf16:   batch-64 bf16 serving throughput, and where its time goes.
+  5. bf16:   batch-64 bf16 serving throughput, and where its time goes;
+  6. int8 kernel: the int8 conv kernel against its plain version. Exactly on
+             the two Pallas probe shapes with integer inputs (the output is
+             then the int32 accumulator itself); within 1 ulp on every
+             distinct quantized conv of yolov3-416 at batch 2, f32 and bf16,
+             with leaky. Then, per shape at batch 64 in bf16: kernel ms and
+             TOPS from CUDA events, its bound, the plain version's ms,
+             torch._int_mm's ms for the 1x1 shapes (the same int8 GEMM, a
+             yardstick the port never calls) and cuDNN's bf16 conv ms for the
+             3x3 ones (context only: not the same function);
+  7. int8:   calibrate the seeded weights on the card, quantize_params, then
+             Detector("yolov3", params=qparams).detect_batch with the f32
+             epilogue at batch 2 on CUDA against the CPU port, with the int8
+             conv and decode launches counted around one forward; then int8
+             bf16 serving at batch 64 beside phase 5's float number.
 Then a JSON line describing each kernel, and last the JSON result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
@@ -21,6 +36,7 @@ weights in the repository), at full Darknet-53 + FPN width, 80 classes.
 Imports nothing of JAX: the machine with the card has none.
 """
 
+import collections
 import json
 import os
 import statistics
@@ -31,14 +47,15 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 MODEL = "yolov3"
 SEED = 0
 OBJ_BIAS = -3.0          # keeps most seeded scores below 0.5: see phase 4
 CONF = 0.5               # the model's own confidence threshold
-KERNEL_BATCH = 8         # phase 3
-PARITY_BATCH = 2         # phase 4
-SERVE_BATCH = 64         # phase 5
+KERNEL_BATCH = 8         # phase 3; the Pallas int8 probes' batch in phase 6
+PARITY_BATCH = 2         # phases 4, 6 and 7
+SERVE_BATCH = 64         # phases 5, 6 and 7
 # f32 kernel vs plain: the same float32 formulas, differing only in the
 # rounding of expf and of the softmax sum order: a few ulp. bf16 inputs
 # widen exactly to f32 in both, so the bf16 comparison holds to the same.
@@ -47,6 +64,17 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
 # conv in another order, over 75 layers (the CPU tests hold the port to the
 # JAX package at the same tolerance).
 PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
+# int8 conv, kernel vs plain: the accumulator is exact in both. The f32
+# epilogue is one fma in the kernel and a float64 multiply-add rounded once
+# in the plain version, which differ only where that double rounding does;
+# the bf16 epilogue rounds after each step in both.
+INT8_ULPS = 1
+# the two shapes tools/probe_int8_3x3.py times its Pallas kernels at
+PROBE_SHAPES = ((52, 128, 256), (13, 512, 1024))      # (H = W, Cin, Cout)
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, int8 and f32 op/s
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+F32_OPS_S = 67e12
 
 
 def require(cond, msg):
@@ -82,15 +110,318 @@ def wall_ms(fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def serve_rate(det, x, iters=5):
+    """(sorted step ms, img/s) of detect_batch over 3 samples of ``iters``
+    chained steps, after 3 warm-up steps; and the last Detections."""
+    for _ in range(3):
+        out = det.detect_batch(x)
+    step_ms = sorted(wall_ms(lambda: det.detect_batch(x), iters)
+                     for _ in range(3))
+    return step_ms, [x.shape[0] * 1e3 / ms for ms in step_ms], out
+
+
+def bound_ms(nbytes, ops, ops_s):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over HBM bandwidth and the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ulp_distance(a, b):
+    """Largest distance between two float32 or two bfloat16 tensors in units
+    in the last place of their dtype, counted across zero."""
+    bits, mask = {torch.float32: (torch.int32, 0x7FFFFFFF),
+                  torch.bfloat16: (torch.int16, 0x7FFF)}[a.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & mask), i)
+
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def check_detections(label, det, imgs, got, want, cfg, kind):
+    """Card Detections (numpy) against the CPU port's: num, classes and
+    valid equal, boxes and scores within PARITY_TOL, at least one detection
+    per image, and no exactly tied score among any image's top 256 (the
+    comparison would then depend on tie order). Returns max |err|."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.pipeline import normalize_images
+    with torch.inference_mode():
+        feats = det.network(normalize_images(
+            torch.as_tensor(imgs, device=det.device), cfg))
+        scores = K.decode_plain(feats, cfg)[1]
+    top = torch.topk(scores, 256, dim=1).values
+    ties = [256 - torch.unique(row).numel() for row in top]
+    print(f"[{label}] scores in [{scores.min().item():.4g}, "
+          f"{scores.max().item():.4g}], {int((scores > CONF).sum())} "
+          f"above {CONF}; exact ties in each image's top 256: {ties}")
+    require(not any(ties), "tied top-256 scores: the comparison would "
+            "depend on tie order")
+    require(np.all(got.num > 0), f"no detections: num={got.num}")
+    for name in ("num", "classes", "valid"):
+        require(np.array_equal(getattr(got, name), getattr(want, name)),
+                f"card and CPU {name} differ")
+    err = {}
+    for name in ("boxes", "scores"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name),
+                                   **PARITY_TOL)
+        err[name] = float(np.abs(getattr(got, name)
+                                 - getattr(want, name)).max())
+    require(got.boxes.shape == (imgs.shape[0], cfg.max_detections, 4)
+            and np.isfinite(got.boxes).all(),
+            f"boxes {got.boxes.shape} not finite or not (B, D, 4)")
+    print(f"[{label}] detect_batch B={imgs.shape[0]} at {cfg.input_size} on "
+          f"{kind}: num {got.num.tolist()}, classes/valid equal to the CPU "
+          f"port, max |err| boxes {err['boxes']:.3g} scores "
+          f"{err['scores']:.3g} (tol {PARITY_TOL})")
+    return err
+
+
+def int8_shapes(specs, cfg, quantized):
+    """Counter of (k, stride, Cin, Cout, H) over the convs whose layer
+    indices are in ``quantized``."""
+    from yolo_tensorflow_tpu_torch.models import engine
+    size = cfg.input_size
+    shapes = engine.infer_shapes(specs, (1, size, size, 3))
+    out = collections.Counter()
+    for i in sorted(quantized):
+        spec = specs[i]
+        require(spec.act == "leaky", f"layer {i}: act {spec.act}")
+        _, h, _, cin = shapes[i - 1] if i else (1, size, size, 3)
+        out[(spec.size, spec.stride, cin, spec.filters, h)] += 1
+    return out
+
+
+def int8_operands(gen, dev, batch, k, cin, cout, h, dtype, integer=False):
+    """Seeded operands of one int8 conv on the card. ``integer``: inputs in
+    [-8, 8], s_x = 1, unit s_w and zero bias, so that the output is the
+    int32 accumulator exactly."""
+    if integer:
+        x = torch.randint(-8, 9, (batch, cin, h, h), generator=gen,
+                          device=dev).float()
+        s_x, s_w = 1.0, torch.ones(cout, device=dev)
+        b = torch.zeros(cout, device=dev)
+    else:
+        x = torch.randn((batch, cin, h, h), generator=gen, device=dev) * 2
+        s_x = 4.0 / 127
+        s_w = (torch.rand(cout, generator=gen, device=dev) + 0.5) / 127
+        b = torch.randn(cout, generator=gen, device=dev)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    w_q = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                        device=dev).to(torch.int8).contiguous(
+                            memory_format=torch.channels_last)
+    return x, w_q, s_x, s_w, b
+
+
+def int8_cost(batch, k, stride, cin, cout, h, in_bytes, out_bytes):
+    """(bytes, int8 ops) of one quantized conv: input read once, weights,
+    scales and bias read once, output written once; 2 ops per MAC."""
+    ho = (h + 2 * (k // 2) - k) // stride + 1
+    m = batch * ho * ho
+    nbytes = (batch * h * h * cin * in_bytes + cout * k * k * cin + 8 * cout
+              + m * cout * out_bytes)
+    return nbytes, 2 * m * cout * k * k * cin
+
+
+def int8_kernel_phase(shapes, dev):
+    """Phase 6. Returns the kernel's JSON fields measured here."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for h, cin, cout in PROBE_SHAPES:
+        x, w_q, s_x, s_w, b = int8_operands(gen, dev, KERNEL_BATCH, 3, cin,
+                                            cout, h, torch.float32, True)
+        got = Q8.conv2d_int8(x, w_q, s_x, s_w, b)
+        want = Q8.conv2d_int8_plain(x, w_q, s_x, s_w, b)
+        acc = Q8.int8_accumulate(x, w_q, pad=1)
+        torch.cuda.synchronize()
+        require(acc.abs().max().item() < 2 ** 24 and torch.equal(got, want)
+                and torch.equal(got, acc.float()),
+                f"int8 probe shape {h}^2 {cin}->{cout}: kernel != int32 "
+                "accumulator")
+        ms = cuda_ms(lambda: Q8.conv2d_int8(x, w_q, s_x, s_w, b))
+        plain = cuda_ms(lambda: Q8.conv2d_int8_plain(x, w_q, s_x, s_w, b),
+                        iters=3, warmup=1)
+        nbytes, ops = int8_cost(KERNEL_BATCH, 3, 1, cin, cout, h, 4, 4)
+        bnd, by = bound_ms(nbytes, ops, INT8_OPS_S)
+        print(f"[6 int8 kernel] Pallas probe shape B={KERNEL_BATCH} {h}^2 "
+              f"{cin}->{cout} 3x3, f32 integer inputs: equal to the int32 "
+              f"accumulator; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), "
+              f"bound {bnd:.4f} ms ({by}), plain {plain:.3f} ms")
+        del x, w_q, got, want, acc
+
+    max_err, worst_ulps = 0.0, 0
+    for (k, stride, cin, cout, h) in sorted(shapes):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w_q, s_x, s_w, b = int8_operands(gen, dev, PARITY_BATCH, k,
+                                                cin, cout, h, dtype)
+            kw = dict(stride=stride, act="leaky", epilogue_dtype=dtype)
+            got = Q8.conv2d_int8(x, w_q, s_x, s_w, b, **kw)
+            want = Q8.conv2d_int8_plain(x, w_q, s_x, s_w, b, **kw)
+            torch.cuda.synchronize()
+            ulps = ulp_distance(got, want)
+            require(got.shape == want.shape and ulps <= INT8_ULPS,
+                    f"int8 conv k{k} s{stride} {cin}->{cout} at {h}^2 "
+                    f"{dtype}: {ulps} ulps from plain")
+            worst_ulps = max(worst_ulps, ulps)
+            max_err = max(max_err, (got.float() - want.float()).abs()
+                          .max().item())
+    print(f"[6 int8 kernel] {len(shapes)} distinct quantized convs of "
+          f"{MODEL}-416 ({sum(shapes.values())} in all) at B={PARITY_BATCH}, "
+          f"f32 and bf16, leaky: within {worst_ulps} ulp of plain (limit "
+          f"{INT8_ULPS}), max |err| {max_err:.3g}")
+
+    tot = collections.Counter()
+    for (k, stride, cin, cout, h), n in sorted(shapes.items(),
+                                              key=lambda kv: -kv[0][4]):
+        x, w_q, s_x, s_w, b = int8_operands(gen, dev, SERVE_BATCH, k, cin,
+                                            cout, h, torch.bfloat16)
+        kw = dict(stride=stride, act="leaky", epilogue_dtype=torch.bfloat16)
+        ms = cuda_ms(lambda: Q8.conv2d_int8(x, w_q, s_x, s_w, b, **kw),
+                     iters=10)
+        plain = cuda_ms(lambda: Q8.conv2d_int8_plain(x, w_q, s_x, s_w, b,
+                                                     **kw), iters=1, warmup=1)
+        nbytes, ops = int8_cost(SERVE_BATCH, k, stride, cin, cout, h, 2, 2)
+        bnd, by = bound_ms(nbytes, ops, INT8_OPS_S)
+        if k == 1:
+            a = torch.randint(-127, 128, (x.numel() // cin, cin),
+                              generator=gen, device=dev).to(torch.int8)
+            w2 = w_q.reshape(cout, cin).t()
+            lib = cuda_ms(lambda: torch._int_mm(a, w2), iters=10)
+            other = f"torch._int_mm {lib:.4f} ms (same int8 GEMM)"
+            tot["int_mm"] += n * lib
+            tot["ms_1x1"] += n * ms
+        else:
+            wf = torch.randn((cout, cin, k, k), generator=gen, device=dev,
+                             dtype=torch.bfloat16).contiguous(
+                                 memory_format=torch.channels_last)
+            bf = torch.randn(cout, generator=gen, device=dev,
+                             dtype=torch.bfloat16)
+            lib = cuda_ms(lambda: F.conv2d(x, wf, bf, stride=stride,
+                                           padding=k // 2), iters=10)
+            other = f"cuDNN bf16 conv {lib:.4f} ms (context: not the same " \
+                    "function)"
+            tot["cudnn_3x3"] += n * lib
+            tot["ms_3x3"] += n * ms
+        tot["ms"] += n * ms
+        tot["plain"] += n * plain
+        tot["bound"] += n * bnd
+        tot[f"bound_{by}"] += n * bnd
+        print(f"[6 int8 kernel] B={SERVE_BATCH} bf16 k{k} s{stride} "
+              f"{cin}->{cout} at {h}^2 x{n}: kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOPS), bound {bnd:.4f} ms ({by}), "
+              f"plain {plain:.3f} ms; {other}")
+        del x, w_q
+    by = ("bytes" if tot["bound_bytes"] >= tot["bound_operations"]
+          else "operations")
+    print(f"[6 int8 kernel] per {MODEL}-416 forward at B={SERVE_BATCH} bf16, "
+          f"summed over the {sum(shapes.values())} convs: kernel "
+          f"{tot['ms']:.3f} ms (1x1 {tot['ms_1x1']:.3f}, 3x3 "
+          f"{tot['ms_3x3']:.3f}), bound {tot['bound']:.3f} ms (bytes-bound "
+          f"layers {tot['bound_bytes']:.3f}, operations-bound "
+          f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms; "
+          f"torch._int_mm over the 1x1 convs {tot['int_mm']:.3f} ms, cuDNN "
+          f"bf16 over the 3x3 convs {tot['cudnn_3x3']:.3f} ms")
+    return {"max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain"],
+            "bound_ms": tot["bound"], "bound_by": by, "library_ms": None}
+
+
+def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
+    """Phase 7. Returns the int8 conv launches of one forward."""
+    from yolo_tensorflow_tpu_torch.io import weights as W
+    from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.ops import quant as Q
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+
+    folded, _ = W.load_darknet_weights(specs, cfg.input_size, path)
+    rng = np.random.default_rng(SEED + 7)
+    calib = [rng.integers(0, 256, imgs.shape, dtype=np.uint8)
+             for _ in range(2)]
+    t0 = time.perf_counter()
+    scales = Q.calibrate_activations(specs, folded, calib, cfg=cfg,
+                                     device=dev)
+    qparams = Q.quantize_params(specs, folded, scales)
+    quant_s = time.perf_counter() - t0
+    shapes = int8_shapes(specs, cfg, {
+        i for i in range(len(specs))
+        if "w_q" in qparams.get(engine.layer_key(i), {})})
+    n_int8 = sum(shapes.values())
+    print(f"[7 int8] calibrated on 2 x {imgs.shape[0]} seeded images on the "
+          f"card and quantized {n_int8} convs ({len(shapes)} distinct; "
+          f"heads {sorted(Q.head_conv_layers(specs))} stay float) in "
+          f"{quant_s:.1f} s; s_x in [{min(scales.values()):.4g}, "
+          f"{max(scales.values()):.4g}]")
+
+    gpu = Detector(MODEL, params=qparams, device="cuda", conf_threshold=CONF)
+    gpu.detect_batch(imgs)                     # warm-up, outside the count
+    torch.cuda.synchronize()
+    Q8.launches = K.launches = 0
+    got = gpu.detect_batch(imgs)               # f32 epilogue: parity mode
+    torch.cuda.synchronize()
+    launches, dec_launches = Q8.launches, K.launches
+    require(launches == n_int8 and dec_launches == 3,
+            f"int8 path launched the int8 conv {launches} times (expected "
+            f"{n_int8}) and the decode {dec_launches} times (expected 3)")
+    cpu = Detector(MODEL, params=qparams, device="cpu", conf_threshold=CONF)
+    check_detections("7 int8 f32", gpu, imgs, NMS.fetch_detections(got),
+                     NMS.fetch_detections(cpu.detect_batch(imgs)), cfg, kind)
+    print(f"[7 int8 f32] one forward launched the int8 conv {launches} times "
+          f"and the decode {dec_launches} times")
+    del gpu, cpu
+
+    det = Detector(MODEL, params=qparams, device="cuda",
+                   compute_dtype=torch.bfloat16, conf_threshold=CONF)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, rates, out = serve_rate(det, x)
+    out = NMS.fetch_detections(out)
+    require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
+            "int8 bf16 detections empty or not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.inference_mode():
+        xn = normalize_images(x, cfg, torch.bfloat16)
+        net_ms = cuda_ms(lambda: det.network(xn), iters=5)
+        # the int8 convs' share: CUDA events around each of them
+        events = []
+        quant = [m for m in det.network.modules()
+                 if isinstance(m, engine.QuantConv)]
+
+        def before(*_):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        hooks = [h for m in quant for h in (
+            m.register_forward_pre_hook(before),
+            m.register_forward_hook(before))]
+        for _ in range(5):
+            det.network(xn)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        conv_ms = sum(a.elapsed_time(b)
+                      for a, b in zip(events[::2], events[1::2])) / 5
+    print(f"[7 int8 bf16] detect_batch B={SERVE_BATCH} at {cfg.input_size}: "
+          f"{statistics.median(rates):.1f} img/s median of 3 x 5 steps "
+          f"(spread {min(rates):.1f}..{max(rates):.1f}), step "
+          f"{statistics.median(step_ms):.2f} ms; float bf16 in phase 5: "
+          f"{float_rate:.1f} img/s; backbone {net_ms:.2f} ms = int8 convs "
+          f"{conv_ms:.2f} ms + the rest {net_ms - conv_ms:.2f} ms; peak "
+          f"memory {peak:.2f} GiB; mean num {out.num.mean():.1f}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from yolo_tensorflow_tpu import config as C
-    from yolo_tensorflow_tpu.models import specs as S
+    from yolo_tensorflow_tpu_torch import config as C
     from yolo_tensorflow_tpu_torch.io import weights as W
     from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.models import specs as S
+    from yolo_tensorflow_tpu_torch.ops import quant as Q
     from yolo_tensorflow_tpu_torch.ops.kernels import build
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
     from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
@@ -143,11 +474,18 @@ def main():
         max_err = max(max_err, err)
         kernel_ms = cuda_ms(lambda: K.decode_fused(dets, cfg))
         plain_ms = cuda_ms(lambda: K.decode_plain(dets, cfg))
-        in_mb = sum(f.numel() * f.element_size() for f, _ in dets) / 1e6
+        in_bytes = sum(f.numel() * f.element_size() for f, _ in dets)
+        # outputs: boxes (4 f32), score (f32) and label (i32) per row
+        out_bytes = sum(g.numel() * g.element_size() for g in got)
+        # ~4 f32 operations per head value (sigmoid/exp, max, compares)
+        dec_bound, dec_by = bound_ms(in_bytes + out_bytes,
+                                     4 * in_bytes // dets[0][0].element_size(),
+                                     F32_OPS_S)
         print(f"[3 kernel] decode {str(dtype)[6:]} B={batch} "
               f"N={got[1].shape[1]}: equal to plain within {KERNEL_TOL}, "
               f"labels equal, max |err| {err:.3g}; kernel {kernel_ms:.4f} ms "
-              f"({in_mb / kernel_ms:.1f} GB/s read), plain {plain_ms:.4f} ms")
+              f"({in_bytes / 1e6 / kernel_ms:.1f} GB/s read), bound "
+              f"{dec_bound:.4f} ms ({dec_by}), plain {plain_ms:.4f} ms")
     del dets, got, want     # the JSON line keeps the last, serving-shape times
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -170,86 +508,69 @@ def main():
         require(launches == len(head_specs),
                 f"decode kernel launched {launches} times in the main path, "
                 f"expected one per head scale ({len(head_specs)})")
-        got = NMS.fetch_detections(got)
         cpu = Detector(MODEL, path, device="cpu", conf_threshold=CONF)
-        want = NMS.fetch_detections(cpu.detect_batch(imgs))
-        with torch.inference_mode():
-            feats = gpu.network(normalize_images(
-                torch.as_tensor(imgs, device=dev), cfg))
-            scores = K.decode_plain(feats, cfg)[1]
-        top = torch.topk(scores, 256, dim=1).values
-        ties = [256 - torch.unique(row).numel() for row in top]
-        print(f"[4 f32] scores in [{scores.min().item():.4g}, "
-              f"{scores.max().item():.4g}], {int((scores > CONF).sum())} "
-              f"above {CONF}; exact ties in each image's top 256: {ties}")
-        require(not any(ties), "tied top-256 scores: the comparison would "
-                "depend on tie order")
-        require(np.all(got.num > 0), f"no detections: num={got.num}")
-        for name in ("num", "classes", "valid"):
-            require(np.array_equal(getattr(got, name), getattr(want, name)),
-                    f"card and CPU {name} differ")
-        err = {}
-        for name in ("boxes", "scores"):
-            np.testing.assert_allclose(getattr(got, name),
-                                       getattr(want, name), **PARITY_TOL)
-            err[name] = float(np.abs(getattr(got, name)
-                                     - getattr(want, name)).max())
-        require(got.boxes.shape == (PARITY_BATCH, cfg.max_detections, 4)
-                and np.isfinite(got.boxes).all(),
-                f"boxes {got.boxes.shape} not finite or not (B, D, 4)")
-        print(f"[4 f32] Detector({MODEL!r}, seeded .weights).detect_batch "
-              f"B={PARITY_BATCH} at {cfg.input_size} on {kind}: num "
-              f"{got.num.tolist()}, classes/valid equal to the CPU port, "
-              f"max |err| boxes {err['boxes']:.3g} scores "
-              f"{err['scores']:.3g} (tol {PARITY_TOL}); decode kernel "
-              f"launches {launches}")
-        del gpu, cpu, feats
+        check_detections("4 f32", gpu, imgs, NMS.fetch_detections(got),
+                         NMS.fetch_detections(cpu.detect_batch(imgs)), cfg,
+                         kind)
+        print(f"[4 f32] decode kernel launches {launches}")
+        del gpu, cpu
 
         # 5. main path, bf16 serving
         torch.backends.cudnn.benchmark = True
         det = Detector(MODEL, path, device="cuda",
                        compute_dtype=torch.bfloat16, conf_threshold=CONF)
-    x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, cfg.input_size,
-                                              cfg.input_size, 3),
-                                     dtype=np.uint8), device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        out = det.detect_batch(x)
-    iters = 5
-    step_ms = sorted(wall_ms(lambda: det.detect_batch(x), iters)
-                     for _ in range(3))
-    rates = [SERVE_BATCH * 1e3 / ms for ms in step_ms]
-    out = NMS.fetch_detections(out)
-    require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
-            "bf16 detections empty or not finite")
-    with torch.inference_mode():
-        xn = normalize_images(x, cfg, torch.bfloat16)
-        net_ms = cuda_ms(lambda: det.network(xn), iters=iters)
-        feats = det.network(xn)
-        dec_ms = cuda_ms(lambda: K.decode_fused(feats, cfg), iters=iters)
-        boxes, scores, labels = K.decode_fused(feats, cfg)
-        nms_ms = statistics.median(
-            wall_ms(lambda: NMS.batched_nms_scored(
-                boxes, scores, labels, conf_threshold=CONF,
-                iou_threshold=cfg.iou_threshold,
-                max_detections=cfg.max_detections), iters)
-            for _ in range(3))
-    step = statistics.median(step_ms)
-    print(f"[5 bf16] detect_batch B={SERVE_BATCH} at {cfg.input_size}, "
-          f"images on the card: {statistics.median(rates):.1f} img/s median "
-          f"of 3 x {iters} steps (spread {min(rates):.1f}..{max(rates):.1f}), "
-          f"step {step:.2f} ms; backbone {net_ms:.2f} ms, decode "
-          f"{dec_ms:.3f} ms, NMS {nms_ms:.2f} ms = {100 * nms_ms / step:.1f}% "
-          f"of the step; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"mean num {out.num.mean():.1f}; on {smi}")
+        x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, cfg.input_size,
+                                                  cfg.input_size, 3),
+                                         dtype=np.uint8), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, rates, out = serve_rate(det, x)
+        out = NMS.fetch_detections(out)
+        require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
+                "bf16 detections empty or not finite")
+        with torch.inference_mode():
+            xn = normalize_images(x, cfg, torch.bfloat16)
+            net_ms = cuda_ms(lambda: det.network(xn), iters=5)
+            feats = det.network(xn)
+            dec_ms = cuda_ms(lambda: K.decode_fused(feats, cfg), iters=5)
+            boxes, scores, labels = K.decode_fused(feats, cfg)
+            nms_ms = statistics.median(
+                wall_ms(lambda: NMS.batched_nms_scored(
+                    boxes, scores, labels, conf_threshold=CONF,
+                    iou_threshold=cfg.iou_threshold,
+                    max_detections=cfg.max_detections), 5)
+                for _ in range(3))
+        step = statistics.median(step_ms)
+        float_rate = statistics.median(rates)
+        print(f"[5 bf16] detect_batch B={SERVE_BATCH} at {cfg.input_size}, "
+              f"images on the card: {float_rate:.1f} img/s median of 3 x 5 "
+              f"steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
+              f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode "
+              f"{dec_ms:.3f} ms, NMS {nms_ms:.2f} ms = "
+              f"{100 * nms_ms / step:.1f}% of the step; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"mean num {out.num.mean():.1f}; on {smi}")
+        del det, feats, boxes, scores, labels
+
+        # 6. int8 conv kernel vs plain, at the shapes the int8 path runs
+        convs = {i for i, sp in enumerate(specs) if isinstance(sp, S.Conv)}
+        int8_fields = int8_kernel_phase(
+            int8_shapes(specs, cfg, convs - Q.head_conv_layers(specs)), dev)
+
+        # 7. the int8 main path
+        int8_launches = int8_path_phase(specs, cfg, path, imgs, x, dev,
+                                        float_rate, kind)
 
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/decode.cu",
         "replaces": "yolo_tensorflow_tpu/ops/pallas/decode.py:82",
         "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": dec_bound,
+        "bound_by": dec_by, "library_ms": None}, {
+        "name": "conv2d_int8", "route": "cuda",
+        "source": "yolo_tensorflow_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "tools/probe_int8_3x3.py:35",
+        "launches": int8_launches, **int8_fields}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

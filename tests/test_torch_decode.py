@@ -10,14 +10,16 @@ import torch
 
 import jax.numpy as jnp
 
-from yolo_tensorflow_tpu import config as C
+from yolo_tensorflow_tpu import config as JC
 from yolo_tensorflow_tpu.models import heads as JH
-from yolo_tensorflow_tpu.models import specs as S
+from yolo_tensorflow_tpu.models import specs as JS
 from yolo_tensorflow_tpu.ops.pallas.decode import (decode_fused as
                                                    jax_decode_fused)
 from yolo_tensorflow_tpu.ops.pallas.decode import (decode_scale_fused as
                                                    jax_decode_scale_fused)
+from yolo_tensorflow_tpu_torch import config as C
 from yolo_tensorflow_tpu_torch.models import heads as TH
+from yolo_tensorflow_tpu_torch.models import specs as S
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
 
 import torch_parity  # noqa: F401  (caps torch threads per worker)
@@ -72,12 +74,13 @@ def test_v2_matches_pallas_and_xla(rng):
     cfg = C.get_config("yolov2-tiny-voc")
     A, Cn = cfg.num_anchors, cfg.num_classes
     feat = rng.standard_normal((2, 13, 13, A * (5 + Cn)), dtype=np.float32)
-    det = S.Detect(tuple(range(A)))
-    want = jax_decode_fused([(jnp.asarray(feat), det)], cfg, interpret=True)
-    got = K.decode_fused([(torch.from_numpy(feat), det)], cfg)
+    jcfg, jdet = JC.get_config("yolov2-tiny-voc"), JS.Detect(tuple(range(A)))
+    want = jax_decode_fused([(jnp.asarray(feat), jdet)], jcfg, interpret=True)
+    got = K.decode_fused([(torch.from_numpy(feat), S.Detect(tuple(range(A))))],
+                         cfg)
     _check(got, want)
 
-    bx, conf, probs = JH.decode([(jnp.asarray(feat), det)], cfg)
+    bx, conf, probs = JH.decode([(jnp.asarray(feat), jdet)], jcfg)
     scores = np.asarray(conf)[..., None] * np.asarray(probs)
     _check(got, (JH.xywh_to_xyxy(bx), scores.max(-1), scores.argmax(-1)))
 
@@ -94,7 +97,8 @@ def test_all_scales_match_decode_scored(rng):
     boxes, scores, labels = TH.decode_scored(
         [(torch.from_numpy(f), d) for f, d in dets], cfg)
     _check(got, (TH.xywh_to_xyxy(boxes), scores, labels))
-    jb, js, jl = JH.decode_scored([(jnp.asarray(f), d) for f, d in dets], cfg)
+    jb, js, jl = JH.decode_scored([(jnp.asarray(f), JS.Detect(d.anchor_mask))
+                                   for f, d in dets], JC.get_config("yolov3"))
     _check(got, (JH.xywh_to_xyxy(jb), js, jl))
 
 

@@ -1,7 +1,14 @@
 """Port engine (yolo_tensorflow_tpu_torch/models/engine.py) vs the JAX
 package's engine.apply: raw head outputs on the same numpy parameters and
 inputs, f32, rtol 1e-4 / atol 1e-4 (conv sums in different orders compound
-over depth; the full yolov3 is 75 convs deep)."""
+over depth; the full yolov3 is 75 convs deep).
+
+Int8 parameters (the JAX package's quantize_params) run through the port's
+int8 conv: its accumulator is exact and its epilogue rounds as JAX's, so the
+int8 layers agree bit for bit and only the float head convs differ: f32 at
+rtol 1e-5 / atol 1e-5; bf16 exactly when the heads are quantized too, and
+otherwise within 2 bf16 ulps (rtol 2**-6, atol 2**-9), since PyTorch's bf16
+conv adds its bias in bf16 where XLA adds it in f32 before one rounding."""
 
 import numpy as np
 import pytest
@@ -10,10 +17,15 @@ import torch
 import jax
 
 from yolo_tensorflow_tpu.models import engine as JE
-from yolo_tensorflow_tpu.models import specs as S
 from yolo_tensorflow_tpu_torch.models import engine as TE
+from yolo_tensorflow_tpu_torch.models import specs as S
 
-from torch_parity import folded_params, model
+from torch_parity import (folded_params, images, jax_int8_params, jax_model,
+                          model)
+from yolo_tensorflow_tpu.pipeline import normalize_images as jax_normalize
+from yolo_tensorflow_tpu_torch.io import weights as TW
+from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+from yolo_tensorflow_tpu_torch.pipeline import normalize_images
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -21,12 +33,13 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 @pytest.mark.parametrize("name,size", [("narrow", 64), ("yolov3-tiny", 64),
                                        ("yolov3", 32)])
 def test_heads_match_jax_apply(name, size, rng):
-    cfg, specs = model(name, size)
+    _, specs = model(name, size)
+    jcfg, jspecs = jax_model(name, size)
     port_params, jax_params = folded_params(specs, size)
     x = rng.uniform(0, 1, (2, size, size, 3)).astype(np.float32)
 
     apply = jax.jit(lambda p, x: [f for f, _ in JE.apply(
-        specs, p, x, bn_eps=cfg.bn_eps)[0]])
+        jspecs, p, x, bn_eps=jcfg.bn_eps)[0]])
     want = apply(jax_params, x)
 
     net = TE.Network(specs, port_params)
@@ -43,8 +56,9 @@ def test_heads_match_jax_apply(name, size, rng):
                                        ("yolov3", 416)])
 def test_infer_shapes_match_jax(name, size):
     _, specs = model(name, size)
+    _, jspecs = jax_model(name, size)
     shape = (1, size, size, 3)
-    assert TE.infer_shapes(specs, shape) == JE.infer_shapes(specs, shape)
+    assert TE.infer_shapes(specs, shape) == JE.infer_shapes(jspecs, shape)
 
 
 @pytest.mark.parametrize("spec,item", [
@@ -60,9 +74,47 @@ def test_unported_layers_raise(spec, item):
                                     "b": np.zeros(4)}})
 
 
-@pytest.mark.parametrize("extra,item", [({"w_q": 0}, "int8"),
-                                        ({"gamma": 0}, "training")])
+@pytest.mark.parametrize("extra,item", [
+    ({"w_q": np.zeros((4, 3, 3, 3), np.int8), "s_w": np.ones(4, np.float32),
+      "s_x": np.float32(1)}, "int8"),
+    ({"gamma": 0}, "training")])
 def test_unported_params_raise(extra, item):
+    """Unfolded BN raises, and so does an int8 conv whose activation (tanh)
+    the int8 kernel's epilogue does not fuse."""
     p = {"L000": {"w": np.zeros((4, 3, 3, 3)), "b": np.zeros(4), **extra}}
     with pytest.raises(NotImplementedError, match=item):
-        TE.Network((S.Conv(4, 3),), p)
+        TE.Network((S.Conv(4, 3, act="tanh"),), p)
+
+
+INT8_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+            "bfloat16": dict(rtol=2 ** -6, atol=2 ** -9)}
+
+
+@pytest.mark.parametrize("name,dtype,quantize_heads", [
+    ("narrow", "float32", False), ("yolov3-tiny", "float32", False),
+    ("yolov3-tiny", "bfloat16", False), ("yolov3-tiny", "bfloat16", True)])
+def test_int8_heads_match_jax_apply(name, dtype, quantize_heads):
+    cfg, specs, jcfg, jspecs, qparams = jax_int8_params(
+        name, 64, quantize_heads=quantize_heads)
+    tdt, jdt = ((torch.float32, None) if dtype == "float32"
+                else (torch.bfloat16, jax.numpy.bfloat16))
+    imgs = images(2, 64)
+    want = jax.jit(lambda p, x: [f for f, _ in JE.apply(
+        jspecs, p, x, bn_eps=jcfg.bn_eps, compute_dtype=jdt)[0]])(
+            qparams, jax_normalize(imgs, jcfg, jdt or jax.numpy.float32))
+
+    net = TE.Network(specs, TW.params_from_jax(qparams), dtype=tdt)
+    n_int8 = sum(isinstance(c, TE.QuantConv) for c in net.convs.values())
+    assert n_int8 == sum("w_q" in p for p in qparams.values()) > 0
+    before = Q8.launches
+    with torch.inference_mode():
+        got = net(normalize_images(torch.from_numpy(imgs), cfg, tdt))
+    assert Q8.launches == before
+    for (feat, _), w in zip(got, want):
+        assert feat.dtype == tdt
+        w = np.asarray(w.astype(jax.numpy.float32))
+        if quantize_heads:
+            np.testing.assert_array_equal(feat.float().numpy(), w)
+        else:
+            np.testing.assert_allclose(feat.float().numpy(), w,
+                                       **INT8_TOL[dtype])

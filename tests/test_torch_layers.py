@@ -47,6 +47,23 @@ def test_activate(name, rng):
         np.asarray(JL.activate(jnp.asarray(x), name)), **TOL)
 
 
+@pytest.mark.parametrize("fn", ["leaky_relu", "activate"])
+def test_leaky_bf16_matches_jax_exactly(fn, rng):
+    """bf16 leaky multiplies by alpha rounded to bf16 (0.10009765625), as
+    JAX's weak-typed scalar does; alpha in f32 rounds ~10 % of the outputs
+    one ulp off."""
+    x = rng.standard_normal(100_000, dtype=np.float32) * 4
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    if fn == "leaky_relu":
+        want, got = JL.leaky_relu(jx), TL.leaky_relu(tx)
+    else:
+        want, got = JL.activate(jx, "leaky"), TL.activate(tx, "leaky")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
 def test_activate_unknown_raises():
     with pytest.raises(ValueError, match="unsupported activation"):
         TL.activate(torch.zeros(2), "mish")

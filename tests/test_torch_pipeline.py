@@ -2,8 +2,20 @@
 JAX package's Detector.detect_batch, on the same seeded weights and images:
 num and classes equal, boxes and scores at rtol 1e-4 / atol 1e-5 (float32
 conv sums in different orders). The JAX side runs its default XLA decode,
-which tests/test_pallas_decode.py pins to its Pallas kernel."""
+which tests/test_pallas_decode.py pins to its Pallas kernel.
 
+Int8 (w8a8) Detectors get the JAX package's quantized params through
+``params_from_jax``: at f32 the same tolerances hold. At bf16 every conv is
+quantized (heads too), so the networks agree bit for bit and only the
+decode differs: the JAX Detector decodes the bf16 heads partly in bf16, the
+port in f32, hence boxes and scores at atol 2**-8 (one bf16 ulp in
+[0.5, 1)). With float bf16 convs left in, a one-ulp difference there (the
+bias is rounded to bf16 before the add in PyTorch, after it in XLA) can move
+the next conv's quantized input by a whole step, which no tolerance on the
+detections bounds; tests/test_torch_engine.py holds that case on the raw
+heads instead."""
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -11,10 +23,12 @@ import torch
 from yolo_tensorflow_tpu.io import weights as JW
 from yolo_tensorflow_tpu.pipeline import Detector as JaxDetector
 from yolo_tensorflow_tpu_torch.io import weights as TW
+from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
 from yolo_tensorflow_tpu_torch.pipeline import Detector
 
-from torch_parity import images, model, write_weights
+from torch_parity import (images, jax_int8_params, jax_model, model,
+                          write_weights)
 
 SIZE = 64
 OPTS = dict(conf_threshold=0.3, num_candidates=64)
@@ -22,15 +36,16 @@ OPTS = dict(conf_threshold=0.3, num_candidates=64)
 
 @pytest.fixture(scope="module", params=["narrow", "yolov3-tiny"])
 def case(request, tmp_path_factory):
-    """(cfg, specs, weights path, JAX params, images, JAX Detections by
-    class_aware_nms)."""
+    """(port cfg, port specs, weights path, JAX params, images, JAX
+    Detections by class_aware_nms)."""
     cfg, specs = model(request.param, SIZE)
+    jcfg, jspecs = jax_model(request.param, SIZE)
     path = tmp_path_factory.mktemp("w") / "m.weights"
     write_weights(specs, SIZE, path)
-    params, _, _ = JW.load_darknet_weights(specs, SIZE, str(path),
-                                           bn_eps=cfg.bn_eps)
+    params, _, _ = JW.load_darknet_weights(jspecs, SIZE, str(path),
+                                           bn_eps=jcfg.bn_eps)
     imgs = images(2, SIZE)
-    want = {aware: JaxDetector(cfg, params=params, specs=specs,
+    want = {aware: JaxDetector(jcfg, params=params, specs=jspecs,
                                class_aware_nms=aware,
                                **OPTS).detect_batch(imgs)
             for aware in (False, True)}
@@ -62,6 +77,46 @@ def test_detect_batch_matches_jax(case, class_aware_nms, source):
                                    rtol=1e-4, atol=1e-5, err_msg=name)
 
 
+def _check_detections(got, want, **tol):
+    assert (got.num > 0).all()
+    for name in ("num", "classes", "valid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    for name in ("boxes", "scores"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)), **tol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["narrow", "yolov3-tiny"])
+def test_int8_detect_batch_matches_jax(name):
+    """f32 epilogue (compute_dtype None): the parity mode."""
+    cfg, specs, jcfg, jspecs, qparams = jax_int8_params(name, SIZE)
+    imgs = images(2, SIZE)
+    want = JaxDetector(jcfg, params=qparams, specs=jspecs,
+                       **OPTS).detect_batch(imgs)
+    det = Detector(cfg, params=TW.params_from_jax(qparams), specs=specs,
+                   device="cpu", **OPTS)
+    before = Q8.launches, K.launches
+    got = det.detect_batch(imgs)
+    assert (Q8.launches, K.launches) == before
+    _check_detections(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_int8_detect_batch_bf16_matches_jax():
+    """bf16 serving, every conv quantized (module docstring)."""
+    cfg, specs, jcfg, jspecs, qparams = jax_int8_params(
+        "yolov3-tiny", SIZE, quantize_heads=True)
+    imgs = images(2, SIZE)
+    want = JaxDetector(jcfg, params=qparams, specs=jspecs,
+                       compute_dtype=jnp.bfloat16, **OPTS).detect_batch(imgs)
+    got = Detector(cfg, params=TW.params_from_jax(qparams), specs=specs,
+                   device="cpu", compute_dtype=torch.bfloat16,
+                   **OPTS).detect_batch(imgs)
+    _check_detections(got, want, rtol=0, atol=2 ** -8)
+
+
 def test_cuda_detector_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -84,8 +139,10 @@ def test_needs_weights_or_params():
 def test_detect_matches_jax(case):
     """detect(): one image of another size, host-resized, pixel boxes."""
     cfg, specs, path, params, _, _ = case
+    jcfg, jspecs = jax_model(cfg.name, SIZE)
     image = images(1, 90, seed=5)[0, :, :70]
-    want = JaxDetector(cfg, params=params, specs=specs, **OPTS).detect(image)
+    want = JaxDetector(jcfg, params=params, specs=jspecs,
+                       **OPTS).detect(image)
     got = Detector(cfg, str(path), specs=specs, device="cpu",
                    **OPTS).detect(image)
     assert len(got) == len(want) > 0

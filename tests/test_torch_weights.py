@@ -9,30 +9,32 @@ from yolo_tensorflow_tpu.io import weights as JW
 from yolo_tensorflow_tpu_torch.io import weights as TW
 from yolo_tensorflow_tpu_torch.models import engine as TE
 
-from torch_parity import model, to_jax, write_weights
+from torch_parity import jax_model, model, to_jax, write_weights
 
 SIZE = 64
 
 
 @pytest.fixture(params=["narrow", "yolov3-tiny"])
 def written(request, tmp_path):
-    """(specs, port-written path, unfolded port params, stats)."""
+    """(port specs, JAX specs, port-written path, unfolded port params,
+    stats)."""
     _, specs = model(request.param, SIZE)
+    _, jspecs = jax_model(request.param, SIZE)
     path = tmp_path / "m.weights"
     params, stats = write_weights(specs, SIZE, path)
-    return specs, path, params, stats
+    return specs, jspecs, path, params, stats
 
 
 def test_writer_byte_identical(written, tmp_path):
-    specs, path, params, stats = written
+    _, jspecs, path, params, stats = written
     jax_path = tmp_path / "jax.weights"
-    JW.save_darknet_weights(specs, SIZE, to_jax(params), stats, jax_path)
+    JW.save_darknet_weights(jspecs, SIZE, to_jax(params), stats, jax_path)
     assert path.read_bytes() == jax_path.read_bytes()
 
 
 def test_reader_equals_jax_exactly(written):
-    specs, path, _, _ = written
-    want, _, want_header = JW.load_darknet_weights(specs, SIZE, str(path))
+    specs, jspecs, path, _, _ = written
+    want, _, want_header = JW.load_darknet_weights(jspecs, SIZE, str(path))
     got, header = TW.load_darknet_weights(specs, SIZE, str(path))
     assert header == want_header
     assert got.keys() == want.keys()
@@ -42,7 +44,7 @@ def test_reader_equals_jax_exactly(written):
 
 
 def test_params_from_jax_round_trips(written):
-    specs, path, _, _ = written
+    specs, _, path, _, _ = written
     got, _ = TW.load_darknet_weights(specs, SIZE, path.read_bytes())
     back = TW.params_from_jax(to_jax(got))
     for key, p in got.items():
@@ -51,7 +53,7 @@ def test_params_from_jax_round_trips(written):
 
 
 def test_truncated_file_raises(written):
-    specs, path, _, _ = written
+    specs, _, path, _, _ = written
     data = path.read_bytes()
     with pytest.raises(TW.WeightsFormatError, match="exhausted"):
         TW.load_darknet_weights(specs, SIZE, data[:-4])
@@ -60,7 +62,7 @@ def test_truncated_file_raises(written):
 
 
 def test_overlong_file_raises(written):
-    specs, path, _, _ = written
+    specs, _, path, _, _ = written
     with pytest.raises(TW.WeightsFormatError, match="3 unconsumed floats"):
         TW.load_darknet_weights(specs, SIZE,
                                 path.read_bytes() + bytes(12))

@@ -4,15 +4,22 @@ Parameters are drawn with numpy (``engine.init_params`` of the port) and
 handed to both packages: the port takes them in its OIHW layout, the JAX
 package in HWIO. A small hand-built v3-style spec covers every layer type
 the port runs.
+
+Each package gets configs and specs built from its own classes: the port
+dispatches with ``isinstance`` on its copies (``models/specs.py``), which a
+JAX spec object would silently fail. ``model`` builds the port's,
+``jax_model`` the JAX package's, from the same description.
 """
 
 import numpy as np
 import torch
 
-from yolo_tensorflow_tpu import config as C
-from yolo_tensorflow_tpu.models import specs as S
+from yolo_tensorflow_tpu import config as JC
+from yolo_tensorflow_tpu.models import specs as JS
+from yolo_tensorflow_tpu_torch import config as TC
 from yolo_tensorflow_tpu_torch.io import weights as TW
 from yolo_tensorflow_tpu_torch.models import engine as TE
+from yolo_tensorflow_tpu_torch.models import specs as TS
 
 # the tests run several pytest workers at once; keep each one's torch small
 torch.set_num_threads(2)
@@ -20,11 +27,11 @@ torch.set_num_threads(2)
 NARROW_CLASSES = ("a", "b", "c", "d")
 
 
-def narrow_spec():
+def narrow_spec(S=TS):
     """v3-style net, 8-32 channels, 4 classes, 2 scales, using Conv (BN,
     stride 2, leaky/relu/tanh, bias-only linear heads), MaxPool (VALID and
     SAME), Route (select and concat, incl. the input), Shortcut, Upsample
-    and Detect."""
+    and Detect. ``S`` is the specs module whose classes build it."""
     per_scale = 3 * (5 + len(NARROW_CLASSES))
     return (
         S.Conv(8, 3),                                  # 0  64x64x8
@@ -48,24 +55,42 @@ def narrow_spec():
     )
 
 
-def narrow_config(input_size=64):
+def narrow_config(input_size=64, C=TC):
+    """The narrow spec's config, of the ``C`` config module's class."""
     return C.ModelConfig(
         name="narrow", dataset="custom", head=3, input_size=input_size,
         anchors=C.V3_TINY_ANCHORS, anchor_units="pixel", class_softmax=False,
         custom_classes=NARROW_CLASSES)
 
 
-def model(name, input_size):
-    """(cfg, specs) for a zoo model name or "narrow"."""
+def _model(C, S, name, input_size):
     if name == "narrow":
-        return narrow_config(input_size), narrow_spec()
+        return narrow_config(input_size, C), narrow_spec(S)
     cfg = C.get_config(name, input_size=input_size)
     return cfg, C.build_specs(cfg)
 
 
+def model(name, input_size):
+    """The port's (cfg, specs) for a zoo model name or "narrow"."""
+    return _model(TC, TS, name, input_size)
+
+
+def jax_model(name, input_size):
+    """The JAX package's (cfg, specs) for the same name."""
+    return _model(JC, JS, name, input_size)
+
+
+def _transpose(p, key, axes):
+    return ({**p, key: np.ascontiguousarray(np.asarray(p[key]).transpose(
+        axes))} if key in p else p)
+
+
 def to_jax(params):
-    """Port-layout params (OIHW) -> the JAX package's layout (HWIO)."""
-    return {k: {**p, "w": np.ascontiguousarray(p["w"].transpose(2, 3, 1, 0))}
+    """Port-layout params (OIHW ``w`` and int8 ``w_q``) -> the JAX
+    package's layout (HWIO): the inverse of ``io.weights.params_from_jax``.
+    """
+    return {k: _transpose(_transpose(p, "w", (2, 3, 1, 0)), "w_q",
+                          (2, 3, 1, 0))
             for k, p in params.items()}
 
 
@@ -81,6 +106,27 @@ def folded_params(specs, input_size, seed=0):
         else:
             port[k] = p
     return port, to_jax(port)
+
+
+def jax_int8_params(name, input_size, *, quantize_heads=False):
+    """(port cfg, port specs, JAX cfg, JAX specs, JAX int8 params): the
+    JAX package's calibration (one seeded batch) and quantization of
+    ``folded_params``. Convs whose activation the port's int8 kernel does
+    not fuse (only linear and leaky) stay float, and so do the heads unless
+    ``quantize_heads``."""
+    from yolo_tensorflow_tpu.ops import quant as JQ
+    cfg, specs = model(name, input_size)
+    jcfg, jspecs = jax_model(name, input_size)
+    _, jax_params = folded_params(specs, input_size)
+    scales = JQ.calibrate_activations(jspecs, jax_params,
+                                      [images(2, input_size, seed=3)],
+                                      cfg=jcfg)
+    skip = {i for i, spec in enumerate(specs) if isinstance(spec, TS.Conv)
+            and spec.act not in ("linear", "leaky")}
+    if not quantize_heads:
+        skip |= JQ.head_conv_layers(jspecs)
+    return cfg, specs, jcfg, jspecs, JQ.quantize_params(
+        jspecs, jax_params, scales, skip=skip)
 
 
 def write_weights(specs, input_size, path, seed=0):

@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from yolo_tensorflow_tpu.models import specs as S
+from yolo_tensorflow_tpu_torch.models import specs as S
 from yolo_tensorflow_tpu_torch.models.engine import (check_supported,
                                                       infer_shapes, layer_key)
 
@@ -141,14 +141,16 @@ def save_darknet_weights(specs, input_size: int, params, batch_stats, path,
 
 def params_from_jax(np_params):
     """TPU-package parameters (numpy, conv kernels HWIO) -> the port's layout
-    (OIHW); other arrays pass through. Conv layers only."""
+    (OIHW): float ``w`` and int8 ``w_q`` alike; other arrays (``b``,
+    ``s_w``, ``s_x``) pass through. Conv layers only."""
     out = {}
     for key, p in np_params.items():
         p = {k: np.asarray(v) for k, v in p.items()}
-        if "w_q" in p or p["w"].ndim != 4:
+        name = "w_q" if "w_q" in p else "w"
+        if p[name].ndim != 4:
             raise NotImplementedError(
-                f"{key}: only float conv parameters carry over (ROADMAP.md, "
-                "'int8' and 'yolov2/yolov1 layers')")
-        out[key] = {**p, "w": np.ascontiguousarray(p["w"].transpose(3, 2, 0,
-                                                                    1))}
+                f"{key}: only conv parameters carry over (ROADMAP.md, "
+                "'yolov2/yolov1 layers')")
+        out[key] = {**p, name: np.ascontiguousarray(
+            p[name].transpose(3, 2, 0, 1))}
     return out

@@ -2,14 +2,18 @@
 
 Counterpart of yolo_tensorflow_tpu/models/engine.py (``apply``,
 ``infer_shapes``, ``layer_key``) for the layer types the v3 family uses:
-Conv (BN-folded or bias-only, any activation in ``ops.layers.activate``),
-MaxPool, Route, Shortcut, Upsample(mode="nearest") and Detect. Every other
-spec type, int8 parameters and unfolded BN raise NotImplementedError naming
-the ROADMAP item that will port them; nothing is skipped silently.
+Conv (BN-folded or bias-only, any activation in ``ops.layers.activate``;
+or int8 w8a8, linear or leaky), MaxPool, Route, Shortcut,
+Upsample(mode="nearest") and Detect. Every other spec type and unfolded BN
+raise NotImplementedError naming the ROADMAP item that will port them;
+nothing is skipped silently.
 
 Parameters are the TPU package's folded pytree in the port's layout:
 {layer_key(i): {"w": (Cout, Cin, kh, kw), "b": (Cout,)}} as numpy arrays or
 tensors (``io.weights.params_from_jax`` converts the TPU package's HWIO).
+A quantized conv (``ops.quant.quantize_params``) carries {"w_q" int8 OIHW,
+"s_w" (Cout,), "s_x" (), "b" (Cout,)} instead and runs through the int8
+kernel (``ops.kernels.conv_int8``).
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from yolo_tensorflow_tpu.models import specs as S
+from yolo_tensorflow_tpu_torch.models import specs as S
 from yolo_tensorflow_tpu_torch.ops import layers as L
+from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
 
 _V1_V2_LAYERS = (S.Reorg, S.Dense, S.TransposeFlatten, S.Softmax,
                  S.GlobalAvgPool, S.Dropout)
@@ -75,6 +80,38 @@ def infer_shapes(specs, input_shape) -> list:
     return shapes
 
 
+class QuantConv(nn.Module):
+    """One w8a8 conv: the input quantized with the static scale s_x, int8
+    weights with per-output-channel scales s_w, and dequantize, bias and
+    activation fused into the int8 kernel's epilogue, which runs in the
+    network's compute dtype (float32 is the parity mode, bfloat16 serving,
+    as the TPU package's ``engine.apply``).
+
+    The tensors are plain attributes, not buffers: ``Module.to(dtype=)``
+    would cast the float32 scales and bias to the compute dtype."""
+
+    def __init__(self, p, spec, *, device, dtype):
+        super().__init__()
+        w_q = torch.as_tensor(np.asarray(p["w_q"], np.int8))
+        k = w_q.shape[-1]
+        self.stride = spec.stride
+        self.pad = k // 2 if spec.pad < 0 else spec.pad
+        self.act = spec.act
+        Q8.check_geometry(k, self.stride, self.pad, self.act)
+        self.dtype = dtype
+        self.w_q = w_q.to(device).contiguous(memory_format=torch.channels_last)
+        self.s_x = float(np.float32(p["s_x"]))
+        self.s_w = torch.as_tensor(np.asarray(p["s_w"], np.float32),
+                                   device=device)
+        self.b = torch.as_tensor(np.asarray(p["b"], np.float32),
+                                 device=device)
+
+    def forward(self, x):
+        return Q8.conv2d_int8(x, self.w_q, self.s_x, self.s_w, self.b,
+                              stride=self.stride, pad=self.pad, act=self.act,
+                              epilogue_dtype=self.dtype)
+
+
 class Network(nn.Module):
     """Folded-inference network over a spec tuple.
 
@@ -83,7 +120,8 @@ class Network(nn.Module):
     for every Detect marker in spec order, like the TPU package's ``apply``.
     Each feat is the NHWC view of a channels-last conv output, contiguous
     with no copy. ``dtype`` is the compute dtype of weights and activations;
-    float32 runs with cuDNN's TF32 off."""
+    float32 runs with cuDNN's TF32 off. Convs whose params hold ``w_q`` are
+    ``QuantConv``s; the others stay cuDNN convs in ``dtype``."""
 
     def __init__(self, specs, params, *, device="cpu", dtype=torch.float32):
         super().__init__()
@@ -96,9 +134,9 @@ class Network(nn.Module):
                 continue
             p = params[layer_key(i)]
             if "w_q" in p:
-                raise NotImplementedError(
-                    f"{layer_key(i)}: int8 parameters are not ported yet "
-                    "(ROADMAP.md, 'int8')")
+                self.convs[layer_key(i)] = QuantConv(p, spec, device=device,
+                                                     dtype=dtype)
+                continue
             if "gamma" in p:
                 raise NotImplementedError(
                     f"{layer_key(i)}: unfolded batch norm is training's form, "
@@ -131,7 +169,9 @@ class Network(nn.Module):
               else contextlib.nullcontext()):
             for i, spec in enumerate(self.specs):
                 if isinstance(spec, S.Conv):
-                    cur = L.activate(self.convs[layer_key(i)](cur), spec.act)
+                    conv = self.convs[layer_key(i)]
+                    cur = (conv(cur) if isinstance(conv, QuantConv)
+                           else L.activate(conv(cur), spec.act))
                 elif isinstance(spec, S.MaxPool):
                     cur = L.max_pool(cur, spec.size, spec.stride)
                 elif isinstance(spec, S.Route):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from yolo_tensorflow_tpu.config import ModelConfig
+from yolo_tensorflow_tpu_torch.config import ModelConfig
 
 
 def _rows(feat, num_anchors: int, num_classes: int):

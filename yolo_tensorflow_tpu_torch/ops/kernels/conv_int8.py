@@ -1,0 +1,161 @@
+"""Int8 (w8a8) convolution: the CUDA kernel and its plain twin.
+
+Counterpart of yolo_tensorflow_tpu/ops/quant.conv2d_int8, with the
+activation fused: quantize the input with its static scale s_x, convolve
+int8 x int8 with exact int32 accumulation, dequantize with s_x * s_w[o],
+add the bias, apply linear or leaky, all in ``epilogue_dtype``. On the TPU
+XLA emitted that conv; tools/probe_int8_3x3.py holds three Pallas versions
+of its accumulator. The kernel is ``csrc/conv_int8.cu`` (its header says
+what bounds it and how it is laid out). PyTorch has no int8 convolution on
+CUDA, so there is no library call that computes this.
+
+Layouts are the port's: x is NCHW in channels-last memory (the NHWC bytes),
+w_q is OIHW int8 in channels-last memory (the (Cout, kh, kw, Cin) bytes the
+kernel reads), s_w and b are (Cout,) float32 and s_x is a host scalar.
+
+Dispatch is by the device of the input: a CUDA tensor launches the kernel
+(or raises), a CPU tensor runs the plain version. ``launches`` counts kernel
+launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from yolo_tensorflow_tpu_torch.ops import layers as L
+from yolo_tensorflow_tpu_torch.ops.kernels import build
+
+launches = 0
+
+ACTIVATIONS = ("linear", "leaky")
+EPILOGUE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_geometry(k: int, stride: int, pad: int, act: str) -> None:
+    """Raise NotImplementedError for a conv the int8 kernel does not take:
+    square k in {1, 3}, stride in {1, 2}, darknet padding k // 2, linear or
+    leaky."""
+    if k not in (1, 3) or stride not in (1, 2) or pad != k // 2:
+        raise NotImplementedError(
+            f"int8 conv takes k in (1, 3), stride in (1, 2) and padding "
+            f"k // 2, not k={k} stride={stride} pad={pad} (ROADMAP.md, "
+            "'int8')")
+    if act not in ACTIVATIONS:
+        raise NotImplementedError(
+            f"int8 conv fuses {ACTIVATIONS} into its epilogue, not {act!r} "
+            "(ROADMAP.md, 'int8')")
+
+
+def int8_accumulate(xq, w_q, *, stride: int = 1, pad: int = 0):
+    """Exact int32 accumulator of an int8 conv: xq (B, Cin, H, W) and w_q
+    (Cout, Cin, k, k), integer-valued tensors of any dtype. The conv runs in
+    float64, which holds every product and partial sum exactly while
+    |acc| < 2**53 (an int8 conv stays below 2**31)."""
+    return F.conv2d(xq.double(), w_q.double(), stride=stride,
+                    padding=pad).to(torch.int32)
+
+
+def _column(v, dtype):
+    return v.to(dtype).reshape(1, -1, 1, 1)
+
+
+def conv2d_int8_plain(x, w_q, s_x, s_w, b, *, stride: int = 1,
+                      pad: int = None, act: str = "linear",
+                      epilogue_dtype=torch.float32):
+    """Plain PyTorch version of ``conv2d_int8``, on any device.
+
+    f32 epilogue: acc * sc + b in float64, rounded once to f32; the kernel's
+    single fma differs from it only where that double rounding does (1 ulp,
+    rarely). bf16 epilogue: bf16 tensor ops rounding after each step, as
+    the kernel and JAX do."""
+    k = w_q.shape[-1]
+    pad = k // 2 if pad is None else pad
+    s = torch.tensor(float(s_x), dtype=torch.float32, device=x.device)
+    xq = torch.clamp(torch.round(x.float() / s), -127, 127)
+    acc = int8_accumulate(xq, w_q, stride=stride, pad=pad).float()
+    sc = s * s_w.float()                       # f32, as the JAX epilogue
+    if epilogue_dtype == torch.float32:
+        y = (acc.double() * _column(sc, torch.float64)
+             + _column(b, torch.float64)).float()
+    else:
+        y = (acc.to(epilogue_dtype) * _column(sc, epilogue_dtype)
+             + _column(b, epilogue_dtype))
+    if act == "leaky":
+        y = L.leaky_relu(y)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def _check(x, w_q, s_w, b, stride, pad, act, epilogue_dtype):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8 conv runs on cpu or cuda, not {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int8 conv takes float32 or bfloat16 input, not "
+                        f"{x.dtype}")
+    if epilogue_dtype not in EPILOGUE_DTYPES:
+        raise TypeError(f"int8 conv epilogue is float32 or bfloat16, not "
+                        f"{epilogue_dtype}")
+    if (w_q.dtype != torch.int8 or w_q.dim() != 4
+            or w_q.shape[2] != w_q.shape[3]):
+        raise ValueError(f"w_q must be int8 (Cout, Cin, k, k), got "
+                         f"{w_q.dtype} {tuple(w_q.shape)}")
+    check_geometry(w_q.shape[-1], stride, pad, act)
+    if x.dim() != 4 or x.shape[1] != w_q.shape[1]:
+        raise ValueError(f"input {tuple(x.shape)} is not (B, "
+                         f"{w_q.shape[1]}, H, W)")
+    for name, t in (("x", x), ("w_q", w_q)):
+        if not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"int8 conv needs {name} in channels-last "
+                             "memory (NHWC / OHWI bytes)")
+    cout = w_q.shape[0]
+    for name, t in (("s_w", s_w), ("b", b)):
+        if (t.dtype != torch.float32 or t.shape != (cout,)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 ({cout},)")
+    for t in (w_q, s_w, b):
+        if t.device != x.device:
+            raise ValueError("int8 conv operands must share the input's "
+                             "device")
+
+
+def conv2d_int8(x, w_q, s_x, s_w, b, *, stride: int = 1, pad: int = None,
+                act: str = "linear", epilogue_dtype=torch.float32):
+    """Quantize x with s_x, int8 conv with w_q (int32 accumulation),
+    dequantize with s_x * s_w, add b, apply ``act``; the result is
+    (B, Cout, Ho, Wo) in channels-last memory, in ``epilogue_dtype``."""
+    k = w_q.shape[-1]
+    pad = k // 2 if pad is None else pad
+    _check(x, w_q, s_w, b, stride, pad, act, epilogue_dtype)
+    if x.device.type == "cpu":
+        return conv2d_int8_plain(x, w_q, s_x, s_w, b, stride=stride, pad=pad,
+                                 act=act, epilogue_dtype=epilogue_dtype)
+    return _launch(x, w_q, float(s_x), s_w, b, stride, pad, act,
+                   epilogue_dtype)
+
+
+def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype):
+    global launches
+    batch, cin, h, w = x.shape
+    cout, k = w_q.shape[0], w_q.shape[-1]
+    y = torch.empty((batch, cout, (h + 2 * pad - k) // stride + 1,
+                     (w + 2 * pad - k) // stride + 1), dtype=epilogue_dtype,
+                    device=x.device, memory_format=torch.channels_last)
+    if y.numel() == 0:
+        return y
+    vec = (cin % 16 == 0 and x.data_ptr() % 16 == 0
+           and w_q.data_ptr() % 16 == 0)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.yolo_conv2d_int8(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), w_q.data_ptr(),
+            s_x, s_w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            int(epilogue_dtype == torch.bfloat16), batch, h, w, cin, cout, k,
+            stride, pad, int(act == "leaky"), int(vec), stream)
+    if err != 0:
+        raise RuntimeError(f"int8 conv kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    return y

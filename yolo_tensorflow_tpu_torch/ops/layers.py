@@ -14,8 +14,11 @@ import torch.nn.functional as F
 
 
 def leaky_relu(x, alpha=0.1):
-    """LEAKY activation, alpha=0.1 everywhere in darknet."""
-    return torch.maximum(x * alpha, x)
+    """LEAKY activation, alpha=0.1 everywhere in darknet. alpha is held in
+    x's dtype, as JAX's weak-typed scalar is: in bf16 that multiplies by
+    bf16(0.1) = 0.10009765625, where a Python float would multiply by 0.1
+    in f32 and round another 10 % of the outputs differently."""
+    return torch.maximum(x * torch.tensor(alpha, dtype=x.dtype), x)
 
 
 def activate(x, name: str):

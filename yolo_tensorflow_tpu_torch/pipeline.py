@@ -2,7 +2,8 @@
 
 Counterpart of yolo_tensorflow_tpu/pipeline.py for the main path,
 ``Detector.detect_batch``: normalize -> backbone (cuDNN convolutions,
-channels-last) -> fused decode + score (the CUDA kernel of
+channels-last; or, for int8 params, the int8 conv kernel of
+ops/kernels/conv_int8.py) -> fused decode + score (the CUDA kernel of
 ops/kernels/decode.py) -> top-k + exact greedy NMS -> Detections. PyTorch
 runs it eagerly; there is no jit.
 """
@@ -14,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from yolo_tensorflow_tpu import config as C
+from yolo_tensorflow_tpu_torch import config as C
 from yolo_tensorflow_tpu_torch.io import weights as W
 from yolo_tensorflow_tpu_torch.models import engine
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
@@ -85,7 +86,9 @@ class Detector:
     ``detect_batch`` takes uint8 (B, S, S, 3) images already at the model's
     input size and returns Detections on ``device``; ``detect`` takes one
     HWC uint8 image of any size. ``compute_dtype``: None is float32 parity
-    (TF32 off), ``torch.bfloat16`` is serving."""
+    (TF32 off), ``torch.bfloat16`` is serving. ``params`` may be int8
+    (``ops.quant.quantize_params``): its quantized convs run the int8
+    kernel with the dequantize epilogue in the compute dtype."""
 
     def __init__(self, model, weights_path: Optional[str] = None, *,
                  params=None, device="cuda", compute_dtype=None,
