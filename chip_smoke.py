@@ -6,8 +6,9 @@
 Phases, one line or more each (a failed phase exits nonzero, and no phase's
 failure is caught):
   1. device: the card, as nvidia-smi reports its name and power limit;
-  2. build:  nvcc builds both CUDA kernels (decode, int8 conv) from
-             yolo_tensorflow_tpu_torch/csrc, one nvcc process per source;
+  2. build:  nvcc builds the CUDA kernels (decode, int8 conv, fused conv +
+             BN statistics) from yolo_tensorflow_tpu_torch/csrc, one nvcc
+             process per source;
   3. kernel: the decode kernel against its plain PyTorch version on the same
              CUDA tensors, at the yolov3-416 head shapes, f32 and bf16, with
              both times from CUDA events;
@@ -28,7 +29,24 @@ failure is caught):
              Detector("yolov3", params=qparams).detect_batch with the f32
              epilogue at batch 2 on CUDA against the CPU port, with the int8
              conv and decode launches counted around one forward; then int8
-             bf16 serving at batch 64 beside phase 5's float number.
+             bf16 serving at batch 64 beside phase 5's float number;
+  8. bnstat kernel: the fused conv + BN-statistics kernel against its plain
+             version, f32 and bf16, at the Pallas probe's two shapes (batch
+             128) and every distinct 3x3 stride-1 BN conv of yolov3-416 at
+             the training batch (32): kernel ms from CUDA events, TFLOP/s,
+             bound, plain ms, and cuDNN's conv + two torch.sum reductions
+             as the library yardstick;
+  9. f32 train: one f32 onepass train step of yolov3-416 at batch 2 on the
+             card (make_train_step, 33 kernel launches counted), and its
+             cost, batch statistics and every gradient against the CPU
+             port's from the same seeded state; the gradients are held to
+             the distance between two correct float32 evaluations (see
+             GRAD_FLOOR);
+ 10. bf16 train: bf16 onepass training at batch 32 (tools/bench_train.py's
+             batch), seeded images and 8 truths per image: img/s as the
+             median of 3 samples of 5 steps with the spread, the step split
+             into forward, loss, backward and optimizer from CUDA events,
+             peak memory, and a finite cost at every step.
 Then a JSON line describing each kernel, and last the JSON result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
@@ -69,12 +87,40 @@ PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
 # in the plain version, which differ only where that double rounding does;
 # the bf16 epilogue rounds after each step in both.
 INT8_ULPS = 1
-# the two shapes tools/probe_int8_3x3.py times its Pallas kernels at
+# the two shapes tools/probe_int8_3x3.py and tools/probe_conv_bnstat.py
+# time their Pallas kernels at
 PROBE_SHAPES = ((52, 128, 256), (13, 512, 1024))      # (H = W, Cin, Cout)
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, int8 and f32 op/s
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, int8, bf16 and f32
+# op/s
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
+BNSTAT_PROBE_BATCH = 128  # tools/probe_conv_bnstat.py's batch
+TRAIN_PARITY_BATCH = 2   # phase 9
+TRAIN_BATCH = 32         # phase 10: tools/bench_train.py's default batch
+TRUTHS = (30, 8)         # truth slots per image, valid ones (bench_train)
+# conv_bnstat, kernel vs plain, relative to the largest |y| or per channel.
+# y: f32 sums in another order (measured <= 3e-6); bf16 rounds two
+# accumulators that differ by order, so at most 1 ulp (2**-7 of |y|) apart.
+# Sums: the kernel adds f32 partials of 128 rows, the plain version sums in
+# float64 (sum measured <= 5e-7 of sqrt(n * sumsq)); the bf16 tensor cores'
+# f32 accumulation truncates, which biases sumsq by up to 8.7e-6 relative.
+BNSTAT_TOL = {torch.float32: dict(y=1e-5, y_ulp=0.0, sq=1e-5),
+              torch.bfloat16: dict(y=1e-5, y_ulp=2 ** -7, sq=1e-4)}
+BNSTAT_SUM_TOL = 1e-5
+# f32 train step, card vs CPU: cost, metrics and batch statistics (the
+# forward) within rtol 1e-4. Gradients cannot be held to 1e-4: two correct
+# float32 evaluations of the yolov3 train step on the same CPU (the fused-
+# stat path and separate reductions) differ by a median 5e-3 and up to
+# 4.8e-2 (relative L2 per parameter, onepass, 128^2), from the float32
+# rounding of train-mode BN's backward over 75 layers. So each gradient of
+# the card's kernel path must be within GRAD_FLOOR[0] x the distance of the
+# card's cuDNN path (no kernel) to the CPU, plus GRAD_FLOOR[1]; per
+# parameter that distance is taken as at least its median over all
+# parameters (a single parameter's floor is itself noise).
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)
+GRAD_FLOOR = (4.0, 1e-4)
 
 
 def require(cond, msg):
@@ -412,6 +458,290 @@ def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
     return launches
 
 
+def bnstat_shapes(specs, cfg):
+    """Counter of (H, Cin, Cout) over the 3x3 stride-1 BN convs, the convs
+    whose training forward runs the conv_bnstat kernel."""
+    from yolo_tensorflow_tpu_torch.models import engine
+    size = cfg.input_size
+    shapes = engine.infer_shapes(specs, (1, size, size, 3))
+    out = collections.Counter()
+    for i, spec in enumerate(specs):
+        if engine.uses_conv_bnstat(spec):
+            _, h, _, cin = shapes[i - 1] if i else (1, size, size, 3)
+            out[(h, cin, spec.filters)] += 1
+    return out
+
+
+def bnstat_case(gen, dev, batch, h, cin, cout, dtype):
+    """Seeded operands of one fused conv, its (bytes, flops), and the
+    library yardstick: cuDNN's conv and two torch.sum reductions."""
+    from yolo_tensorflow_tpu_torch.ops import layers as L
+    x = torch.randn((batch, cin, h, h), generator=gen, device=dev).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+         / (3 * cin ** 0.5)).to(dtype).contiguous(
+             memory_format=torch.channels_last)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (x.numel() + w.numel() + batch * h * h * cout) * size + 8 * cout
+    flops = 2 * batch * h * h * cout * 9 * cin
+
+    def library():
+        with L.exact_f32_convs():
+            y = F.conv2d(x, w, padding=1)
+        return (torch.sum(y, (0, 2, 3), dtype=torch.float32),
+                torch.sum(torch.square(y), (0, 2, 3), dtype=torch.float32))
+
+    return x, w, nbytes, flops, library
+
+
+def bnstat_check(label, got, want, dtype, n):
+    """conv_bnstat kernel (y, sum, sumsq) against its plain version within
+    BNSTAT_TOL; returns max |y err|."""
+    tol = BNSTAT_TOL[dtype]
+    y, s, q = got
+    yp, sp, qp = want
+    yf, ypf = y.float(), yp.float()
+    err = (yf - ypf).abs()
+    lim = tol["y"] * ypf.abs().max() + tol["y_ulp"] * ypf.abs()
+    require(y.shape == yp.shape and y.dtype == yp.dtype
+            and bool((err <= lim).all()),
+            f"{label}: y off its plain version by {err.max().item():.3g}")
+    scale = (n * qp.double()).sqrt()
+    s_err = ((s.double() - sp.double()).abs() / scale).max().item()
+    q_err = ((q - qp).abs() / qp).max().item()
+    require(s_err <= BNSTAT_SUM_TOL and q_err <= tol["sq"],
+            f"{label}: sum off by {s_err:.3g} of sqrt(n * sumsq), sumsq by "
+            f"{q_err:.3g} relative")
+    return err.max().item(), s_err, q_err
+
+
+def bnstat_kernel_phase(specs, cfg, dev):
+    """Phase 8. Returns the kernel's JSON fields measured here, summed over
+    the main path's convs (bf16, batch TRAIN_BATCH)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    shapes = bnstat_shapes(specs, cfg)
+    cases = ([(BNSTAT_PROBE_BATCH, h, ci, co, 0)
+              for h, ci, co in PROBE_SHAPES]
+             + [(TRAIN_BATCH, h, ci, co, n)
+                for (h, ci, co), n in sorted(shapes.items(),
+                                             key=lambda kv: -kv[0][0])])
+    max_err = 0.0
+    tot = collections.Counter()
+    for batch, h, cin, cout, n in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, nbytes, flops, library = bnstat_case(gen, dev, batch, h,
+                                                       cin, cout, dtype)
+            label = (f"B={batch} {h}^2 {cin}->{cout} {str(dtype)[6:]}"
+                     + ("" if n else " (Pallas probe shape)"))
+            err, s_err, q_err = bnstat_check(
+                label, BS.conv3x3_bnstat_forward(x, w),
+                BS.conv3x3_bnstat_plain(x, w), dtype, batch * h * h)
+            max_err = max(max_err, err)
+            ms = cuda_ms(lambda: BS.conv3x3_bnstat_forward(x, w), iters=10)
+            plain = cuda_ms(lambda: BS.conv3x3_bnstat_plain(x, w), iters=2,
+                            warmup=1)
+            lib = cuda_ms(library, iters=10)
+            peak = BF16_OPS_S if dtype == torch.bfloat16 else F32_OPS_S
+            bnd, by = bound_ms(nbytes, flops, peak)
+            print(f"[8 bnstat kernel] {label}" + (f" x{n}" if n else "")
+                  + f": equal to plain (max |y err| {err:.3g}, sum "
+                  f"{s_err:.2g}, sumsq {q_err:.2g}); kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bnd:.4f} ms "
+                  f"({by}), plain {plain:.3f} ms, cuDNN conv + 2 sums "
+                  f"{lib:.4f} ms")
+            if n and dtype == torch.bfloat16:
+                tot["ms"] += n * ms
+                tot["plain"] += n * plain
+                tot["lib"] += n * lib
+                tot["bound"] += n * bnd
+                tot[f"bound_{by}"] += n * bnd
+                tot["flops"] += n * flops
+            del x, w
+    by = ("bytes" if tot["bound_bytes"] >= tot["bound_operations"]
+          else "operations")
+    print(f"[8 bnstat kernel] per {MODEL}-416 training forward at "
+          f"B={TRAIN_BATCH} bf16, summed over the {sum(shapes.values())} "
+          f"fused convs ({tot['flops'] / 1e12:.3f} TFLOP): kernel "
+          f"{tot['ms']:.3f} ms ({tot['flops'] / tot['ms'] / 1e9:.1f} "
+          f"TFLOP/s), bound {tot['bound']:.3f} ms (bytes-bound convs "
+          f"{tot['bound_bytes']:.3f}, operations-bound "
+          f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms, "
+          f"cuDNN conv + 2 sums {tot['lib']:.3f} ms")
+    return {"max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain"],
+            "bound_ms": tot["bound"], "bound_by": by,
+            "library_ms": tot["lib"]}
+
+
+def train_inputs(cfg, batch, seed):
+    """Seeded uint8 images and (B, 30, 5) truths with 8 valid boxes per
+    image, drawn as tools/bench_train.py draws them."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (batch, cfg.input_size, cfg.input_size, 3),
+                        dtype=np.uint8)
+    slots, valid = TRUTHS
+    tr = np.zeros((batch, slots, 5), np.float32)
+    tr[:, :valid, 0:2] = rng.uniform(0.2, 0.8, (batch, valid, 2))
+    tr[:, :valid, 2:4] = rng.uniform(0.05, 0.4, (batch, valid, 2))
+    tr[:, :valid, 4] = rng.integers(0, cfg.num_classes, (batch, valid))
+    return imgs, tr
+
+
+def rel_l2(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def train_parity_phase(cfg, specs, params, stats, n_fused, dev):
+    """Phase 9. The f32 onepass step on the card against the CPU port."""
+    from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
+    from yolo_tensorflow_tpu_torch.train import loop as TL
+    imgs, tr = train_inputs(cfg, TRAIN_PARITY_BATCH, SEED + 9)
+    kw = dict(bn_stats="onepass")
+
+    def grads_on(device):
+        tx = TL.make_optimizer(TL.darknet_lr_schedule(1e-3, burn_in=1000))
+        st = TL.create_train_state(cfg, tx, device=device, params=params,
+                                   batch_stats=stats)
+        g, new, m = TL.loss_and_grads(
+            cfg, specs, st.network, torch.as_tensor(imgs, device=device),
+            torch.as_tensor(tr, device=device), **kw)
+        return ({k: {n: v.cpu() for n, v in p.items()} for k, p in g.items()},
+                {k: {n: v.cpu() for n, v in p.items()} for k, p in
+                 new.items()}, {k: float(v) for k, v in m.items()})
+
+    # the entry point a user calls, with the kernel's launches counted
+    tx = TL.make_optimizer(TL.darknet_lr_schedule(1e-3, burn_in=1000))
+    state = TL.create_train_state(cfg, tx, device=dev, params=params,
+                                  batch_stats=stats)
+    step = TL.make_train_step(cfg, tx, **kw)
+    torch.cuda.synchronize()
+    BS.launches = 0
+    state, m = step(state, imgs, tr)
+    torch.cuda.synchronize()
+    launches = BS.launches
+    require(launches == n_fused and np.isfinite(float(m["cost"])),
+            f"f32 train step launched conv_bnstat {launches} times (expected "
+            f"{n_fused}), cost {float(m['cost'])}")
+    del state, step
+
+    t0 = time.perf_counter()
+    g_card, st_card, m_card = grads_on(dev)
+    real = engine.uses_conv_bnstat
+    engine.uses_conv_bnstat = lambda spec: False   # cuDNN + plain stats
+    try:
+        g_alt, _, _ = grads_on(dev)
+    finally:
+        engine.uses_conv_bnstat = real
+    t1 = time.perf_counter()
+    g_cpu, st_cpu, m_cpu = grads_on("cpu")
+    cpu_s = time.perf_counter() - t1
+    for key, want in m_cpu.items():
+        np.testing.assert_allclose(m_card[key], want, rtol=TRAIN_TOL["rtol"],
+                                   err_msg=f"f32 train metric {key}")
+    st_err = 0.0
+    for k, d in st_cpu.items():
+        for n, want in d.items():
+            err = (st_card[k][n] - want).abs().max().item()
+            lim = TRAIN_TOL["rtol"] * want.abs().max().item() \
+                + TRAIN_TOL["atol"]
+            require(err <= lim, f"batch stat {k}/{n}: |err| {err:.3g} > "
+                    f"{lim:.3g}")
+            st_err = max(st_err, err / max(want.abs().max().item(), 1e-12))
+    names = [(k, n) for k in sorted(g_cpu) for n in sorted(g_cpu[k])]
+    errs = [rel_l2(g_card[k][n], g_cpu[k][n]) for k, n in names]
+    floors = [rel_l2(g_alt[k][n], g_cpu[k][n]) for k, n in names]
+    mid = statistics.median(floors)
+    ratios = [e / max(f, mid) for e, f in zip(errs, floors)]
+    worst = max(range(len(names)), key=ratios.__getitem__)
+    for (k, n), e, f in zip(names, errs, floors):
+        require(e <= GRAD_FLOOR[0] * max(f, mid) + GRAD_FLOOR[1],
+                f"gradient {k}/{n}: relative L2 {e:.3g} from the CPU, "
+                f"against {f:.3g} for the cuDNN path (median {mid:.3g})")
+    flat = lambda g: torch.cat([g[k][n].flatten() for k, n in names])
+    e_all = rel_l2(flat(g_card), flat(g_cpu))
+    f_all = rel_l2(flat(g_alt), flat(g_cpu))
+    require(e_all <= GRAD_FLOOR[0] * f_all + GRAD_FLOOR[1],
+            f"all gradients: relative L2 {e_all:.3g} against {f_all:.3g}")
+    print(f"[9 f32 train] {MODEL}-416 B={TRAIN_PARITY_BATCH} onepass: "
+          f"make_train_step launched conv_bnstat {launches} times (one per "
+          f"fused conv); card vs CPU port ({cpu_s:.1f} s on the CPU, "
+          f"{t1 - t0:.1f} s for both card passes): cost {m_card['cost']:.6g} "
+          f"vs {m_cpu['cost']:.6g}, metrics within rtol "
+          f"{TRAIN_TOL['rtol']}; batch stats within {st_err:.2g} of each "
+          f"leaf's max; gradients, relative L2 per parameter: kernel path "
+          f"median {statistics.median(errs):.3g}, max {max(errs):.3g}; "
+          f"cuDNN path median {statistics.median(floors):.3g}, max "
+          f"{max(floors):.3g}; all parameters {e_all:.3g} vs {f_all:.3g}; "
+          f"ratio to the floor median {statistics.median(ratios):.2f}, max "
+          f"{ratios[worst]:.2f} at {'/'.join(names[worst])} (limit "
+          f"{GRAD_FLOOR[0]} x + {GRAD_FLOOR[1]})")
+    return launches
+
+
+def train_bf16_phase(cfg, specs, params, stats, dev, n_fused, smi):
+    """Phase 10. bf16 training throughput at TRAIN_BATCH."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
+    from yolo_tensorflow_tpu_torch.train import loop as TL
+    imgs, tr = train_inputs(cfg, TRAIN_BATCH, SEED + 10)
+    imgs, tr = torch.as_tensor(imgs, device=dev), torch.as_tensor(tr,
+                                                                  device=dev)
+    tx = TL.make_optimizer(TL.darknet_lr_schedule(1e-3, burn_in=1000))
+    state = TL.create_train_state(cfg, tx, device=dev, params=params,
+                                  batch_stats=stats)
+    events = []
+
+    def mark(name):
+        events.append((name, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    step = TL.make_train_step(cfg, tx, compute_dtype=torch.bfloat16,
+                              bn_stats="onepass", marks=mark)
+    costs = []
+    for _ in range(2):                          # warm-up
+        state, m = step(state, imgs, tr)
+        costs.append(m["cost"])
+    torch.cuda.synchronize()
+    BS.launches = 0
+    state, m = step(state, imgs, tr)            # the counted step
+    costs.append(m["cost"])
+    torch.cuda.synchronize()
+    launches = BS.launches
+    require(launches == n_fused, f"bf16 train step launched conv_bnstat "
+            f"{launches} times, expected {n_fused}")
+    torch.cuda.reset_peak_memory_stats()
+    events.clear()
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            mark("start")
+            state, m = step(state, imgs, tr)
+            costs.append(m["cost"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = collections.defaultdict(float)
+    for (_, a), (name, b) in zip(events, events[1:]):
+        if name != "start":
+            split[name] += a.elapsed_time(b) / 15
+    costs = torch.stack(costs).cpu().numpy()
+    require(np.all(np.isfinite(costs)), f"bf16 train cost not finite: "
+            f"{costs}")
+    rates = sorted(TRAIN_BATCH * 1e3 / ms for ms in step_ms)
+    print(f"[10 bf16 train] {MODEL}-416 B={TRAIN_BATCH} onepass, images on "
+          f"the card: {statistics.median(rates):.1f} img/s median of 3 x 5 "
+          f"steps (spread {rates[0]:.1f}..{rates[-1]:.1f}), step "
+          f"{statistics.median(step_ms):.2f} ms = forward "
+          f"{split['forward']:.2f} + loss {split['loss']:.2f} + backward "
+          f"{split['backward']:.2f} + optimizer {split['optimizer']:.2f} ms "
+          f"(CUDA events); {launches} conv_bnstat launches per step; peak "
+          f"memory {peak:.2f} GiB; cost finite at all {len(costs)} steps, "
+          f"{costs[0]:.5g} -> {costs[-1]:.5g}; on {smi}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -559,6 +889,22 @@ def main():
         # 7. the int8 main path
         int8_launches = int8_path_phase(specs, cfg, path, imgs, x, dev,
                                         float_rate, kind)
+    del x
+
+    # 8. conv_bnstat kernel vs plain, at the shapes training runs
+    bnstat_fields = bnstat_kernel_phase(specs, cfg, dev)
+
+    # 9. the f32 training path against the CPU port
+    n_fused = sum(bnstat_shapes(specs, cfg).values())
+    params, stats = engine.init_params(specs, cfg.input_size, SEED,
+                                       obj_bias=OBJ_BIAS)
+    torch.backends.cudnn.benchmark = False
+    train_parity_phase(cfg, specs, params, stats, n_fused, dev)
+
+    # 10. the bf16 training path
+    torch.backends.cudnn.benchmark = True
+    bnstat_launches = train_bf16_phase(cfg, specs, params, stats, dev,
+                                       n_fused, smi)
 
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",
@@ -570,7 +916,11 @@ def main():
         "name": "conv2d_int8", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/conv_int8.cu",
         "replaces": "tools/probe_int8_3x3.py:35",
-        "launches": int8_launches, **int8_fields}]}))
+        "launches": int8_launches, **int8_fields}, {
+        "name": "conv3x3_bnstat", "route": "cuda",
+        "source": "yolo_tensorflow_tpu_torch/csrc/conv_bnstat.cu",
+        "replaces": "tools/probe_conv_bnstat.py:47",
+        "launches": bnstat_launches, **bnstat_fields}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

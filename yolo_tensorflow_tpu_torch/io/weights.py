@@ -154,3 +154,15 @@ def params_from_jax(np_params):
         out[key] = {**p, name: np.ascontiguousarray(
             p[name].transpose(3, 2, 0, 1))}
     return out
+
+
+def train_state_from_jax(np_params, np_batch_stats, np_momentum=None):
+    """A TPU-package TrainState's parameters, running BN statistics and SGD
+    momentum buffers (numpy trees: the momentum is optax's trace, shaped
+    like the parameters) -> the port's layout, conv kernels OIHW, as
+    ``train.loop.create_train_state(params=, batch_stats=, momentum=)``
+    takes them. Returns (params, batch_stats, momentum or None)."""
+    stats = {k: {n: np.asarray(v, np.float32) for n, v in st.items()}
+             for k, st in np_batch_stats.items()}
+    momentum = None if np_momentum is None else params_from_jax(np_momentum)
+    return params_from_jax(np_params), stats, momentum

@@ -1,12 +1,13 @@
-"""The layer-spec interpreter as an ``nn.Module``: folded inference only.
+"""The layer-spec interpreter as ``nn.Module``s: folded inference
+(``Network``) and training (``TrainNetwork``).
 
 Counterpart of yolo_tensorflow_tpu/models/engine.py (``apply``,
 ``infer_shapes``, ``layer_key``) for the layer types the v3 family uses:
 Conv (BN-folded or bias-only, any activation in ``ops.layers.activate``;
 or int8 w8a8, linear or leaky), MaxPool, Route, Shortcut,
-Upsample(mode="nearest") and Detect. Every other spec type and unfolded BN
-raise NotImplementedError naming the ROADMAP item that will port them;
-nothing is skipped silently.
+Upsample(mode="nearest") and Detect. Every other spec type, and unfolded
+BN in inference, raise NotImplementedError naming the ROADMAP item that will
+port them; nothing is skipped silently.
 
 Parameters are the TPU package's folded pytree in the port's layout:
 {layer_key(i): {"w": (Cout, Cin, kh, kw), "b": (Cout,)}} as numpy arrays or
@@ -18,14 +19,13 @@ kernel (``ops.kernels.conv_int8``).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 from torch import nn
 
 from yolo_tensorflow_tpu_torch.models import specs as S
 from yolo_tensorflow_tpu_torch.ops import layers as L
+from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
 
 _V1_V2_LAYERS = (S.Reorg, S.Dense, S.TransposeFlatten, S.Softmax,
@@ -78,6 +78,24 @@ def infer_shapes(specs, input_shape) -> list:
             cur = (b, h * spec.factor, w * spec.factor, c)
         shapes.append(cur)
     return shapes
+
+
+def apply_unweighted(spec, i, cur, x, outputs):
+    """Output of spec i when it holds no parameters (MaxPool, Route,
+    Shortcut, Upsample; Detect passes ``cur`` through). ``x`` is the network
+    input, ``outputs`` every earlier layer's output."""
+    if isinstance(spec, S.MaxPool):
+        return L.max_pool(cur, spec.size, spec.stride)
+    if isinstance(spec, S.Route):
+        ts = [x if S.resolve_ref(r, i) == S.INPUT
+              else outputs[S.resolve_ref(r, i)] for r in spec.refs]
+        return ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
+    if isinstance(spec, S.Shortcut):
+        r = S.resolve_ref(spec.ref, i)
+        return cur + (x if r == S.INPUT else outputs[r])
+    if isinstance(spec, S.Upsample):
+        return L.upsample_nearest(cur, spec.factor)
+    return cur
 
 
 class QuantConv(nn.Module):
@@ -139,9 +157,10 @@ class Network(nn.Module):
                 continue
             if "gamma" in p:
                 raise NotImplementedError(
-                    f"{layer_key(i)}: unfolded batch norm is training's form, "
-                    "not ported yet (ROADMAP.md, 'training'); load with "
-                    "io.weights.load_darknet_weights, which folds")
+                    f"{layer_key(i)}: unfolded batch norm is the training "
+                    "form (engine.TrainNetwork); inference with it is not "
+                    "ported (ROADMAP.md, 'training'): fold it, as "
+                    "io.weights.load_darknet_weights does")
             w = torch.as_tensor(np.asarray(p["w"], np.float32))
             conv = nn.utils.skip_init(
                 nn.Conv2d, w.shape[1], w.shape[0], w.shape[2],
@@ -159,35 +178,118 @@ class Network(nn.Module):
         outputs, detections = [], []
         x = x.to(self.dtype)
         cur = x
-        cudnn = torch.backends.cudnn
-        # float32 convolutions in full precision: cuDNN otherwise runs them
-        # in TF32 (the TPU package forces Precision.HIGHEST in its f32
-        # parity mode for the same reason); the slice runs no matmul
-        with (cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                          deterministic=cudnn.deterministic, allow_tf32=False)
-              if self.dtype == torch.float32 and x.is_cuda
-              else contextlib.nullcontext()):
+        with L.exact_f32_convs(self.dtype == torch.float32 and x.is_cuda):
             for i, spec in enumerate(self.specs):
                 if isinstance(spec, S.Conv):
                     conv = self.convs[layer_key(i)]
                     cur = (conv(cur) if isinstance(conv, QuantConv)
                            else L.activate(conv(cur), spec.act))
-                elif isinstance(spec, S.MaxPool):
-                    cur = L.max_pool(cur, spec.size, spec.stride)
-                elif isinstance(spec, S.Route):
-                    ts = [x if S.resolve_ref(r, i) == S.INPUT
-                          else outputs[S.resolve_ref(r, i)]
-                          for r in spec.refs]
-                    cur = ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
-                elif isinstance(spec, S.Shortcut):
-                    r = S.resolve_ref(spec.ref, i)
-                    cur = cur + (x if r == S.INPUT else outputs[r])
-                elif isinstance(spec, S.Upsample):
-                    cur = L.upsample_nearest(cur, spec.factor)
-                elif isinstance(spec, S.Detect):
+                else:
+                    cur = apply_unweighted(spec, i, cur, x, outputs)
+                if isinstance(spec, S.Detect):
                     detections.append((cur.permute(0, 2, 3, 1), spec))
                 outputs.append(cur)
         return detections
+
+
+def uses_conv_bnstat(spec) -> bool:
+    """Whether a train-mode conv runs the fused conv + BN-stat kernel: the
+    3x3 stride-1 BN convs with darknet's padding."""
+    return (isinstance(spec, S.Conv) and spec.bn and spec.size == 3
+            and spec.stride == 1 and spec.pad in (-1, 1))
+
+
+class TrainNetwork(nn.Module):
+    """Train-mode network over a spec tuple: the TPU package's
+    ``engine.apply(train=True)`` for the layer types the port runs.
+
+    Holds unfolded parameters as float32 ``nn.Parameter``s in the port's
+    layout, ``params[layer_key(i)]`` = {"w" OIHW, "gamma", "beta"} for a BN
+    conv and {"w", "b"} for a bias-only one (``params_tree()`` returns them
+    as that dict). Conv weights live in channels-last memory.
+
+    ``forward(x, compute_dtype=None, bn_stats="twopass", bn_eps=1e-5)``
+    takes the normalized input (B, 3, H, W), channels-last, and returns
+    (detections, batch_stats): [(feat_nhwc float32, Detect)] per Detect
+    marker and {layer_key: {"mean", "var"}} float32 batch statistics, as
+    the TPU package returns them. BN convs use the batch statistics
+    (``ops.layers.batch_norm_train``); the 3x3 stride-1 ones run
+    ``ops.kernels.conv_bnstat`` (the CUDA kernel on a CUDA input), whose
+    sums give the batch mean and, under onepass, the variance. The other
+    convs are cuDNN's. ``compute_dtype`` bfloat16 is the TPU package's mixed
+    precision: BN-conv activations stay bf16 and are not re-cast between
+    layers, head convs come out in float32, and the master weights, batch
+    statistics and bias adds stay float32. ``compute_dtype`` float64 (on the
+    CPU) evaluates the same step in double: a reference for the float32
+    one."""
+
+    def __init__(self, specs, params, *, device="cpu"):
+        super().__init__()
+        self.specs = tuple(specs)
+        self.params = nn.ModuleDict()
+        for i, spec in enumerate(self.specs):
+            check_supported(spec, i)
+            if not isinstance(spec, S.Conv):
+                continue
+            key = layer_key(i)
+            p = params[key]
+            names = ("w", "gamma", "beta") if spec.bn else ("w", "b")
+            if "w_q" in p or any(n not in p for n in names):
+                raise ValueError(f"{key}: training takes unfolded float "
+                                 f"params {names}, got {sorted(p)}")
+            # copies: the parameters are updated in place
+            tensors = {n: torch.tensor(np.asarray(p[n], np.float32),
+                                       device=device) for n in names}
+            tensors["w"] = tensors["w"].contiguous(
+                memory_format=torch.channels_last)
+            self.params[key] = nn.ParameterDict(
+                {n: nn.Parameter(t) for n, t in tensors.items()})
+
+    def params_tree(self) -> dict:
+        """{layer_key: {name: Parameter}}, the TPU package's params pytree."""
+        return {k: dict(p.items()) for k, p in self.params.items()}
+
+    def _bn_conv(self, cur, spec, p, compute_dtype, bn_stats, bn_eps):
+        if uses_conv_bnstat(spec):
+            x = cur.to(compute_dtype or cur.dtype).contiguous(
+                memory_format=torch.channels_last)
+            y, s, sq = BS.conv3x3_bnstat(x, p["w"].to(x.dtype))
+            sums = (s, sq)
+        else:
+            y = L.conv2d(cur, p["w"], stride=spec.stride,
+                         pad=None if spec.pad < 0 else spec.pad,
+                         compute_dtype=compute_dtype, train=True,
+                         out_dtype=compute_dtype)
+            sums = None
+        return L.batch_norm_train(y, p["gamma"], p["beta"], bn_eps,
+                                  stats=bn_stats, sums=sums)
+
+    def forward(self, x, compute_dtype=None, bn_stats: str = "twopass",
+                bn_eps: float = 1e-5):
+        outputs, detections, stats = [], [], {}
+        cur = x
+        for i, spec in enumerate(self.specs):
+            if isinstance(spec, S.Conv):
+                key = layer_key(i)
+                p = self.params[key]
+                if spec.bn:
+                    cur, mean, var = self._bn_conv(cur, spec, p,
+                                                   compute_dtype, bn_stats,
+                                                   bn_eps)
+                    stats[key] = {"mean": mean.detach(),
+                                  "var": var.detach()}
+                else:
+                    cur = L.conv2d(cur, p["w"], p["b"], stride=spec.stride,
+                                   pad=None if spec.pad < 0 else spec.pad,
+                                   compute_dtype=compute_dtype, train=True)
+                cur = L.activate(cur, spec.act)
+            else:
+                cur = apply_unweighted(spec, i, cur, x, outputs)
+            if isinstance(spec, S.Detect):
+                wide = torch.promote_types(cur.dtype, torch.float32)
+                detections.append((cur.to(wide).permute(0, 2, 3, 1), spec))
+            outputs.append(cur)
+        return detections, stats
 
 
 def init_params(specs, input_size: int, seed: int, *, in_channels: int = 3,

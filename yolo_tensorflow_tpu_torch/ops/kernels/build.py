@@ -103,4 +103,9 @@ def load() -> ctypes.CDLL:
     lib.yolo_conv2d_int8.argtypes = [vp, i, vp, ctypes.c_float, vp, vp, vp, i,
                                      i, i, i, i, i, i, i, i, i, i, vp]
     lib.yolo_conv2d_int8.restype = i
+    lib.yolo_conv3x3_bnstat_tiles.argtypes = [i, i, i]
+    lib.yolo_conv3x3_bnstat_tiles.restype = i
+    lib.yolo_conv3x3_bnstat.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i,
+                                        i, i, i, i, vp]
+    lib.yolo_conv3x3_bnstat.restype = i
     return lib
