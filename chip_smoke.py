@@ -7,8 +7,8 @@ Phases, one line or more each (a failed phase exits nonzero, and no phase's
 failure is caught):
   1. device: the card, as nvidia-smi reports its name and power limit;
   2. build:  nvcc builds the CUDA kernels (decode, int8 conv, fused conv +
-             BN statistics) from yolo_tensorflow_tpu_torch/csrc, one nvcc
-             process per source;
+             BN statistics; the two convs share csrc/igemm_sm90.cuh) from
+             yolo_tensorflow_tpu_torch/csrc, one nvcc process per source;
   3. kernel: the decode kernel against its plain PyTorch version on the same
              CUDA tensors, at the yolov3-416 head shapes, f32 and bf16, with
              both times from CUDA events;
@@ -20,11 +20,15 @@ failure is caught):
              the two Pallas probe shapes with integer inputs (the output is
              then the int32 accumulator itself); within 1 ulp on every
              distinct quantized conv of yolov3-416 at batch 2, f32 and bf16,
-             with leaky. Then, per shape at batch 64 in bf16: kernel ms and
-             TOPS from CUDA events, its bound, the plain version's ms,
-             torch._int_mm's ms for the 1x1 shapes (the same int8 GEMM, a
-             yardstick the port never calls) and cuDNN's bf16 conv ms for the
-             3x3 ones (context only: not the same function);
+             with leaky, and on the odd cases of INT8_ODD (ragged Cout and
+             M, 1x1 images, stride 2, Cin that cp.async cannot copy,
+             unaligned weights, small first convs); the quantize prologue
+             bit for bit. Then, per shape at batch 64 in bf16: the kernel
+             instance and tile, kernel ms (prologue + GEMM) and TOPS from
+             CUDA events, the prologue's ms alone, its bound, the plain
+             version's ms, torch._int_mm's ms for the 1x1 shapes (the same
+             int8 GEMM, a yardstick the port never calls) and cuDNN's bf16
+             conv ms for the 3x3 ones (context only: not the same function);
   7. int8:   calibrate the seeded weights on the card, quantize_params, then
              Detector("yolov3", params=qparams).detect_batch with the f32
              epilogue at batch 2 on CUDA against the CPU port, with the int8
@@ -32,8 +36,9 @@ failure is caught):
              bf16 serving at batch 64 beside phase 5's float number;
   8. bnstat kernel: the fused conv + BN-statistics kernel against its plain
              version, f32 and bf16, at the Pallas probe's two shapes (batch
-             128) and every distinct 3x3 stride-1 BN conv of yolov3-416 at
-             the training batch (32): kernel ms from CUDA events, TFLOP/s,
+             128), every distinct 3x3 stride-1 BN conv of yolov3-416 at
+             the training batch (32) and the odd cases of BNSTAT_ODD: the
+             kernel instance and tile, kernel ms from CUDA events, TFLOP/s,
              bound, plain ms, and cuDNN's conv + two torch.sum reductions
              as the library yardstick;
   9. f32 train: one f32 onepass train step of yolov3-416 at batch 2 on the
@@ -96,6 +101,24 @@ HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
+# Odd int8 cases, (batch, k, stride, Cin, Cout, H = W, unaligned weights):
+# Cout off the 32-channel tile and off 16-byte rows, M off the 128-row tile,
+# 1x1 images (every tap but the centre is padding), stride 2, a Cin whose
+# pixels are not whole 16-byte chunks and weights off a 16-byte boundary
+# (both take the element-by-element instance), and first convs that do and
+# do not fit the direct kernel.
+INT8_ODD = ((3, 3, 1, 16, 40, 7, False), (2, 1, 1, 32, 20, 5, False),
+            (5, 3, 1, 16, 24, 1, False), (2, 3, 2, 48, 72, 9, False),
+            (2, 3, 1, 24, 36, 5, False), (2, 3, 1, 24, 72, 5, False),
+            (2, 1, 1, 32, 64, 6, True), (2, 3, 2, 3, 16, 10, False),
+            (2, 3, 1, 3, 20, 6, False))
+# Odd conv_bnstat cases, (batch, H = W, Cin, Cout, unaligned input): as
+# above, with Cout on each side of every tile width
+BNSTAT_ODD = ((3, 7, 24, 40, False), (5, 1, 16, 20, False),
+              (3, 7, 24, 300, False), (2, 5, 12, 36, False),
+              (2, 5, 12, 100, False), (2, 4, 12, 260, False),
+              (2, 9, 32, 64, True), (2, 6, 3, 16, False),
+              (2, 6, 3, 20, False))
 BNSTAT_PROBE_BATCH = 128  # tools/probe_conv_bnstat.py's batch
 TRAIN_PARITY_BATCH = 2   # phase 9
 TRAIN_BATCH = 32         # phase 10: tools/bench_train.py's default batch
@@ -184,6 +207,18 @@ def ulp_distance(a, b):
         return torch.where(i < 0, -(i & mask), i)
 
     return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def unaligned(t):
+    """A copy of channels-last ``t`` in channels-last memory that starts one
+    element past a 16-byte boundary."""
+    b, c, h, w = t.shape
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+    view.copy_(t)
+    require(view.is_contiguous(memory_format=torch.channels_last)
+            and view.data_ptr() % 16 != 0, "unaligned(): view is aligned")
+    return view
 
 
 def check_detections(label, det, imgs, got, want, cfg, kind):
@@ -297,25 +332,42 @@ def int8_kernel_phase(shapes, dev):
         del x, w_q, got, want, acc
 
     max_err, worst_ulps = 0.0, 0
-    for (k, stride, cin, cout, h) in sorted(shapes):
+    used = collections.Counter()
+    cases = ([(PARITY_BATCH, k, stride, cin, cout, h, False)
+              for (k, stride, cin, cout, h) in sorted(shapes)]
+             + list(INT8_ODD))
+    for (batch, k, stride, cin, cout, h, off) in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            x, w_q, s_x, s_w, b = int8_operands(gen, dev, PARITY_BATCH, k,
-                                                cin, cout, h, dtype)
+            x, w_q, s_x, s_w, b = int8_operands(gen, dev, batch, k, cin,
+                                                cout, h, dtype)
+            if off:
+                w_q = unaligned(w_q)
             kw = dict(stride=stride, act="leaky", epilogue_dtype=dtype)
             got = Q8.conv2d_int8(x, w_q, s_x, s_w, b, **kw)
             want = Q8.conv2d_int8_plain(x, w_q, s_x, s_w, b, **kw)
             torch.cuda.synchronize()
             ulps = ulp_distance(got, want)
             require(got.shape == want.shape and ulps <= INT8_ULPS,
-                    f"int8 conv k{k} s{stride} {cin}->{cout} at {h}^2 "
-                    f"{dtype}: {ulps} ulps from plain")
+                    f"int8 conv B={batch} k{k} s{stride} {cin}->{cout} at "
+                    f"{h}^2 {dtype} {Q8.plan(x, w_q)}: {ulps} ulps from "
+                    "plain")
+            require(torch.equal(Q8.quantize_act(x, s_x),
+                                Q8.quantize_act_plain(x, s_x)),
+                    f"quantize prologue != plain at {tuple(x.shape)} {dtype}")
+            used[Q8.plan(x, w_q)] += 1
             worst_ulps = max(worst_ulps, ulps)
             max_err = max(max_err, (got.float() - want.float()).abs()
                           .max().item())
+    x = unaligned(int8_operands(gen, dev, 2, 1, 13, 8, 5, torch.bfloat16)[0])
+    require(torch.equal(Q8.quantize_act(x, 0.03),
+                        Q8.quantize_act_plain(x, 0.03)),
+            "quantize prologue != plain on an unaligned input")
     print(f"[6 int8 kernel] {len(shapes)} distinct quantized convs of "
-          f"{MODEL}-416 ({sum(shapes.values())} in all) at B={PARITY_BATCH}, "
-          f"f32 and bf16, leaky: within {worst_ulps} ulp of plain (limit "
-          f"{INT8_ULPS}), max |err| {max_err:.3g}")
+          f"{MODEL}-416 ({sum(shapes.values())} in all) at B={PARITY_BATCH} "
+          f"and {len(INT8_ODD)} odd cases, f32 and bf16, leaky: within "
+          f"{worst_ulps} ulp of plain (limit {INT8_ULPS}), max |err| "
+          f"{max_err:.3g}; the quantize prologue equal to plain, also "
+          f"unaligned; (instance, BN) taken: {dict(used)}")
 
     tot = collections.Counter()
     for (k, stride, cin, cout, h), n in sorted(shapes.items(),
@@ -325,6 +377,10 @@ def int8_kernel_phase(shapes, dev):
         kw = dict(stride=stride, act="leaky", epilogue_dtype=torch.bfloat16)
         ms = cuda_ms(lambda: Q8.conv2d_int8(x, w_q, s_x, s_w, b, **kw),
                      iters=10)
+        instance, bn = Q8.plan(x, w_q)
+        # the direct kernel quantizes in registers: no prologue pass
+        quant = (0.0 if instance == "direct" else
+                 cuda_ms(lambda: Q8.quantize_act(x, s_x), iters=10))
         plain = cuda_ms(lambda: Q8.conv2d_int8_plain(x, w_q, s_x, s_w, b,
                                                      **kw), iters=1, warmup=1)
         nbytes, ops = int8_cost(SERVE_BATCH, k, stride, cin, cout, h, 2, 2)
@@ -350,20 +406,23 @@ def int8_kernel_phase(shapes, dev):
             tot["cudnn_3x3"] += n * lib
             tot["ms_3x3"] += n * ms
         tot["ms"] += n * ms
+        tot["quant"] += n * quant
         tot["plain"] += n * plain
         tot["bound"] += n * bnd
         tot[f"bound_{by}"] += n * bnd
         print(f"[6 int8 kernel] B={SERVE_BATCH} bf16 k{k} s{stride} "
-              f"{cin}->{cout} at {h}^2 x{n}: kernel {ms:.4f} ms "
-              f"({ops / ms / 1e9:.1f} TOPS), bound {bnd:.4f} ms ({by}), "
-              f"plain {plain:.3f} ms; {other}")
+              f"{cin}->{cout} at {h}^2 x{n}: {instance} BN={bn}, kernel "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS) of which the "
+              f"quantize prologue alone {quant:.4f} ms, bound {bnd:.4f} ms "
+              f"({by}), plain {plain:.3f} ms; {other}")
         del x, w_q
     by = ("bytes" if tot["bound_bytes"] >= tot["bound_operations"]
           else "operations")
     print(f"[6 int8 kernel] per {MODEL}-416 forward at B={SERVE_BATCH} bf16, "
           f"summed over the {sum(shapes.values())} convs: kernel "
           f"{tot['ms']:.3f} ms (1x1 {tot['ms_1x1']:.3f}, 3x3 "
-          f"{tot['ms_3x3']:.3f}), bound {tot['bound']:.3f} ms (bytes-bound "
+          f"{tot['ms_3x3']:.3f}; the quantize prologues alone "
+          f"{tot['quant']:.3f}), bound {tot['bound']:.3f} ms (bytes-bound "
           f"layers {tot['bound_bytes']:.3f}, operations-bound "
           f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms; "
           f"torch._int_mm over the 1x1 convs {tot['int_mm']:.3f} ms, cuDNN "
@@ -472,12 +531,15 @@ def bnstat_shapes(specs, cfg):
     return out
 
 
-def bnstat_case(gen, dev, batch, h, cin, cout, dtype):
-    """Seeded operands of one fused conv, its (bytes, flops), and the
-    library yardstick: cuDNN's conv and two torch.sum reductions."""
+def bnstat_case(gen, dev, batch, h, cin, cout, dtype, off=False):
+    """Seeded operands of one fused conv (``off``: the input starts off a
+    16-byte boundary), its (bytes, flops), and the library yardstick:
+    cuDNN's conv and two torch.sum reductions."""
     from yolo_tensorflow_tpu_torch.ops import layers as L
     x = torch.randn((batch, cin, h, h), generator=gen, device=dev).to(
         dtype).contiguous(memory_format=torch.channels_last)
+    if off:
+        x = unaligned(x)
     w = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
          / (3 * cin ** 0.5)).to(dtype).contiguous(
              memory_format=torch.channels_last)
@@ -521,18 +583,35 @@ def bnstat_kernel_phase(specs, cfg, dev):
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     shapes = bnstat_shapes(specs, cfg)
-    cases = ([(BNSTAT_PROBE_BATCH, h, ci, co, 0)
+    cases = ([(BNSTAT_PROBE_BATCH, h, ci, co, 0, False)
               for h, ci, co in PROBE_SHAPES]
-             + [(TRAIN_BATCH, h, ci, co, n)
+             + [(TRAIN_BATCH, h, ci, co, n, False)
                 for (h, ci, co), n in sorted(shapes.items(),
                                              key=lambda kv: -kv[0][0])])
     max_err = 0.0
     tot = collections.Counter()
-    for batch, h, cin, cout, n in cases:
+    used = collections.Counter()
+    for batch, h, cin, cout, off in BNSTAT_ODD:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, _, _, _ = bnstat_case(gen, dev, batch, h, cin, cout, dtype,
+                                        off)
+            label = (f"odd case B={batch} {h}^2 {cin}->{cout} "
+                     f"{str(dtype)[6:]} {BS.plan(x, w)}")
+            err, _, _ = bnstat_check(
+                label, BS.conv3x3_bnstat_forward(x, w),
+                BS.conv3x3_bnstat_plain(x, w), dtype, batch * h * h)
+            max_err = max(max_err, err)
+            used[BS.plan(x, w)] += 1
+    print(f"[8 bnstat kernel] {len(BNSTAT_ODD)} odd cases, f32 and bf16: "
+          f"equal to plain within BNSTAT_TOL; (instance, BN) taken: "
+          f"{dict(used)}")
+    for batch, h, cin, cout, n, off in cases:
         for dtype in (torch.float32, torch.bfloat16):
             x, w, nbytes, flops, library = bnstat_case(gen, dev, batch, h,
-                                                       cin, cout, dtype)
-            label = (f"B={batch} {h}^2 {cin}->{cout} {str(dtype)[6:]}"
+                                                       cin, cout, dtype, off)
+            instance, bn = BS.plan(x, w)
+            label = (f"B={batch} {h}^2 {cin}->{cout} {str(dtype)[6:]} "
+                     f"{instance} BN={bn}"
                      + ("" if n else " (Pallas probe shape)"))
             err, s_err, q_err = bnstat_check(
                 label, BS.conv3x3_bnstat_forward(x, w),

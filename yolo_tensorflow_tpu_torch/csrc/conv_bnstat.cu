@@ -23,20 +23,28 @@
 // at 3.35 TB/s, the bound is 1.80 ms summed: operations bound except the
 // first conv (Cin = 3) and the 208^2 one (Cin = 32), which are bytes bound.
 //
-// Design (a first, simple kernel: mma.sync without a pipeline; wgmma, TMA and
-// cp.async pipelining are later work):
+// Design:
 // - GEMM view: M = batch*H*W output pixels, N = Cout, K = 9*Cin in
 //   (ky, kx, c) order. x is NHWC, w is OIHW in channels-last memory, i.e.
 //   (Cout, 3, 3, Cin) bytes, so each output channel's K is contiguous.
-// - bf16: one CTA of 8 warps per 128 x 128 output tile, K steps of 32
-//   elements; each warp owns 64 x 32 of the tile as 4 x 4 mma.sync
-//   m16n8k16 bf16 -> f32 products per 16 of K. Shared rows are padded to 80
-//   bytes so that the fragment loads hit 32 distinct banks. Cin % 8 == 0
-//   gathers 8 channels per 16-byte load; Cin = 3 (the first conv) gathers
-//   element by element and zero-fills K = 27 up to the 32 of one step.
-// - f32: the same tiles with scalar FFMA (the tensor cores' TF32 would not
+// - bf16, Cin % 8 == 0 and 16-byte aligned operands (every yolov3 conv but
+//   the first): igemm_sm90.cuh's main loop, a ring of cp.async stages
+//   of 128-byte-swizzled tiles read by wgmma m64nBNk16, 128 x BN output
+//   tiles with BN in {256, 128, 64, 32} chosen by the caller from Cout, so
+//   that Cout = 64 and 32 idle none of the tensor cores' columns and Cout
+//   >= 256 reads each A tile half as often. What bounds it:
+//   operations where K is deep (13^2 to 52^2), bytes at 208^2 and 416^2.
+//   Other Cin or unaligned operands fill the same ring element by element.
+// - bf16, Cin = 3 and Cout <= 32 (the first conv, bytes bound): a direct
+//   kernel, one thread per output pixel with its 27 inputs in registers and
+//   the 27 x 32 weights in shared memory, bf16 products summed in f32 by
+//   FFMA, 16-byte stores. No tensor cores: K = 27 would idle most of a tile.
+// - Epilogue of the wgmma instances: y = bf16(acc) is staged through the
+//   freed ring and written 16 bytes a thread along Cout.
+// - f32: 128 x 128 tiles with scalar FFMA (the tensor cores' TF32 would not
 //   hold the f32 training step to the CPU's float32): K steps of 16, tiles
-//   staged K-major, each thread owns an 8 x 8 strided sub-tile.
+//   staged K-major, each thread owns an 8 x 8 strided sub-tile. It exists
+//   for the f32 parity step only and has no pipeline.
 // - Stats: each CTA reduces its tile's columns in registers, across lanes by
 //   shuffles and across warps in shared memory, in a fixed order, into one
 //   row of a (num_M_tiles, Cout) partials buffer per statistic. A second
@@ -49,22 +57,31 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "igemm_sm90.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBM = 128;                 // output pixels per CTA
-constexpr int kBN = 128;                 // output channels per CTA
+constexpr int kBM = igemm::kBM;         // output pixels per CTA
 constexpr int kThreads = 256;
-// bf16 tiles: K step of 32 elements (64 bytes), rows padded to 40 elements
-constexpr int kBK = 32;
-constexpr int kLd = kBK + 8;
-// f32 tiles: K step of 16, staged K-major, rows padded by 4
+constexpr int kWarps = kThreads / 32;
+// f32 tiles: 128 output channels per CTA, K step of 16, staged K-major, rows
+// padded by 4
+constexpr int kBN = 128;
 constexpr int kBKf = 16;
 constexpr int kLdf = kBM + 4;
+// direct kernel (Cin = 3): one thread per output pixel, up to 32 channels;
+// staged output rows are padded by 16 bytes against bank conflicts
+constexpr int kDirectThreads = kBM;
+constexpr int kDirectParts = kDirectThreads / 32;
+constexpr int kDirectK = 27;
+constexpr int kDirectN = 32;
+constexpr int kDirectPitch = kDirectN * 2 + 16;
 constexpr int kReduceX = 32;             // channels per reduce CTA
 constexpr int kReduceY = 16;             // tile strides per reduce CTA
 
+// The f32 and direct kernels' view of the conv.
 struct Conv {
   const void* x;        // (batch, h, w, cin)
   const void* wt;       // (cout, 3, 3, cin)
@@ -73,6 +90,14 @@ struct Conv {
   float* part_sq;       // (m_tiles, cout)
   int h, w, cin, cout;
   int m, kdim, n_tiles;
+};
+
+// What the wgmma instances' epilogue writes.
+struct Stats {
+  bf16* y;              // (batch, h, w, cout)
+  float* part_sum;      // (m_tiles, cout)
+  float* part_sq;       // (m_tiles, cout)
+  int y_vec;            // y rows take 16-byte stores
 };
 
 // The pixel a GEMM row m reads from: its image's first pixel and its output
@@ -114,188 +139,65 @@ __device__ __forceinline__ int64_t src_of(const Conv& p, const Row& r,
   return static_cast<int64_t>(r.pix + iy * p.w + ix) * p.cin + c;
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Sum of the warps' column partials red[warp][col] in warp order, written as
-// the CTA's row of the partials buffer.
-template <int kWarps>
-__device__ __forceinline__ void write_partials(const Conv& p,
-                                               float (*red_sum)[kBN],
-                                               float (*red_sq)[kBN],
+// Sum of the partials red[i][col], i < kParts, in that order, written as the
+// CTA's row of the partials buffers.
+template <int kParts, int BN>
+__device__ __forceinline__ void write_partials(float* part_sum,
+                                               float* part_sq, int cout,
+                                               float (*red_sum)[BN],
+                                               float (*red_sq)[BN],
                                                int m_tile, int n0) {
   __syncthreads();
   const int col = threadIdx.x;
-  if (col < kBN && n0 + col < p.cout) {
+  if (col < BN && n0 + col < cout) {
     float s = 0.0f, q = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
+    for (int i = 0; i < kParts; ++i) {
       s += red_sum[i][col];
       q += red_sq[i][col];
     }
-    const int64_t at = static_cast<int64_t>(m_tile) * p.cout + n0 + col;
-    p.part_sum[at] = s;
-    p.part_sq[at] = q;
+    const int64_t at = static_cast<int64_t>(m_tile) * cout + n0 + col;
+    part_sum[at] = s;
+    part_sq[at] = q;
   }
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-conv_bnstat_bf16(const Conv p) {
-  __shared__ __align__(16) bf16 a_s[kBM * kLd];
-  __shared__ __align__(16) bf16 b_s[kBN * kLd];
-  __shared__ float red_sum[2][kBN];
-  __shared__ float red_sq[2][kBN];
-
-  const bf16* x = static_cast<const bf16*>(p.x);
-  const bf16* w = static_cast<const bf16*>(p.wt);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;               // mma groupID
-  const int t = lane & 3;                // mma threadID_in_group
-  const int wm = warp >> 2;              // warp's 64-row slice
-  const int wn = warp & 3;               // warp's 32-column slice
-  const int m_tile = static_cast<int>(blockIdx.x / p.n_tiles);
-  const int n0 = static_cast<int>(blockIdx.x % p.n_tiles) * kBN;
+// bf16 through the shared wgmma main loop, then y = bf16(acc) staged through
+// the ring and the tile's column sums of acc and acc * acc.
+template <int BN, bool kAsync>
+__global__ void __launch_bounds__(igemm::kThreads, igemm::ctas_per_sm<BN>())
+conv_bnstat_wgmma(const igemm::Conv g, const Stats p) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float red_sum[kWarps][BN];
+  __shared__ float red_sq[kWarps][BN];
+  uint8_t* ring = igemm::align_1024(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m_tile = static_cast<int>(blockIdx.x / g.n_tiles);
+  const int n0 = static_cast<int>(blockIdx.x % g.n_tiles) * BN;
   const int m0 = m_tile * kBM;
 
-  // A: rows tid / 4 and tid / 4 + 64, 8-element chunk tid % 4 of each
-  const int chunk = tid & 3;
-  Row rows[2];
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) rows[i] = row_of(p, m0 + (tid >> 2) + i * 64);
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  igemm::mainloop<uint16_t, BN, kAsync>(g, m0, n0, ring, acc);
 
-  float acc[4][4][4];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.0f;
-
-  for (int k0 = 0; k0 < p.kdim; k0 += kBK) {
-    const int kk = k0 + chunk * 8;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (kVec) {
-        // Cin % 8 == 0: the chunk's 8 channels share one (ky, kx)
-        const int64_t at = src_of(p, rows[i], kk);
-        if (at >= 0) v = __ldg(reinterpret_cast<const uint4*>(x + at));
-      } else {
-        alignas(16) bf16 e[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int64_t at = src_of(p, rows[i], kk + j);
-          e[j] = at >= 0 ? x[at] : __float2bfloat16_rn(0.0f);
-        }
-        v = *reinterpret_cast<const uint4*>(e);
-      }
-      *reinterpret_cast<uint4*>(
-          &a_s[((tid >> 2) + i * 64) * kLd + chunk * 8]) = v;
-    }
-    // B: weights (cout, K), 8 elements per chunk, 2 chunks per thread
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int id = tid + i * kThreads;
-      const int n = id >> 2;
-      const int kc = (id & 3) * 8;
-      const int gn = n0 + n;
-      const int gk = k0 + kc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gn < p.cout) {
-        const bf16* src = w + static_cast<int64_t>(gn) * p.kdim + gk;
-        if (kVec) {
-          if (gk < p.kdim) v = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-          alignas(16) bf16 e[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            e[j] = gk + j < p.kdim ? src[j] : __float2bfloat16_rn(0.0f);
-          }
-          v = *reinterpret_cast<const uint4*>(e);
-        }
-      }
-      *reinterpret_cast<uint4*>(&b_s[n * kLd + kc]) = v;
-    }
-    __syncthreads();
-
-    // fragments per the PTX ISA's m16n8k16 .bf16 layout
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const bf16* r0 = &a_s[(wm * 64 + mi * 16 + g) * kLd + ks + 2 * t];
-        const bf16* r8 = r0 + 8 * kLd;
-        af[mi][0] = lds32(r0);
-        af[mi][1] = lds32(r8);
-        af[mi][2] = lds32(r0 + 8);
-        af[mi][3] = lds32(r8 + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const bf16* c0 = &b_s[(wn * 32 + ni * 8 + g) * kLd + ks + 2 * t];
-        bfr[ni][0] = lds32(c0);
-        bfr[ni][1] = lds32(c0 + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: c[0..1] are row g, columns 2t and 2t+1; c[2..3] row g + 8
-  bf16* y = static_cast<bf16*>(p.y);
-  const bool even = (p.cout & 1) == 0;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int n = n0 + wn * 32 + ni * 8 + 2 * t;
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = igemm::frag_col(j);
     float s0 = 0.0f, s1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float v0 = acc[mi][ni][2 * half];
-        const float v1 = acc[mi][ni][2 * half + 1];
-        s0 += v0;
-        s1 += v1;
-        q0 = __fmaf_rn(v0, v0, q0);
-        q1 = __fmaf_rn(v1, v1, q1);
-        const int m = m0 + wm * 64 + mi * 16 + g + half * 8;
-        if (m >= p.m || n >= p.cout) continue;
-        bf16* dst = y + static_cast<int64_t>(m) * p.cout + n;
-        const bf16 y0 = __float2bfloat16_rn(v0);
-        if (n + 1 < p.cout) {
-          const bf16 y1 = __float2bfloat16_rn(v1);
-          if (even) {
-            __nv_bfloat162 pair;
-            pair.x = y0;
-            pair.y = y1;
-            *reinterpret_cast<__nv_bfloat162*>(dst) = pair;
-          } else {
-            dst[0] = y0;
-            dst[1] = y1;
-          }
-        } else {
-          dst[0] = y0;
-        }
-      }
+    for (int half = 0; half < 2; ++half) {
+      const float v0 = acc[4 * j + 2 * half];
+      const float v1 = acc[4 * j + 2 * half + 1];
+      s0 += v0;
+      s1 += v1;
+      q0 = __fmaf_rn(v0, v0, q0);
+      q1 = __fmaf_rn(v1, v1, q1);
+      *reinterpret_cast<__nv_bfloat162*>(igemm::tile_at<bf16, BN>(
+          ring, igemm::frag_row(half), col)) = __floats2bfloat162_rn(v0, v1);
     }
-    // the 8 lanes of one t share the columns: butterfly over g
+    // the 8 lanes of one lane & 3 share the columns: butterfly over the rest
 #pragma unroll
     for (int off = 4; off < 32; off <<= 1) {
       s0 += __shfl_xor_sync(0xffffffffu, s0, off);
@@ -303,15 +205,115 @@ conv_bnstat_bf16(const Conv p) {
       q0 += __shfl_xor_sync(0xffffffffu, q0, off);
       q1 += __shfl_xor_sync(0xffffffffu, q1, off);
     }
-    if (g == 0) {
-      const int col = wn * 32 + ni * 8 + 2 * t;
-      red_sum[wm][col] = s0;
-      red_sum[wm][col + 1] = s1;
-      red_sq[wm][col] = q0;
-      red_sq[wm][col + 1] = q1;
+    if (lane < 4) {
+      red_sum[warp][col] = s0;
+      red_sum[warp][col + 1] = s1;
+      red_sq[warp][col] = q0;
+      red_sq[warp][col + 1] = q1;
     }
   }
-  write_partials<2>(p, red_sum, red_sq, m_tile, n0);
+  write_partials<kWarps, BN>(p.part_sum, p.part_sq, g.cout, red_sum, red_sq,
+                             m_tile, n0);   // its barrier also ends staging
+  igemm::copy_tile_out<bf16, BN>(ring, p.y, m0, n0, g.m, g.cout,
+                                 p.y_vec != 0);
+}
+
+// bf16, Cin = 3, Cout <= 32 and Cout % 8 == 0: no tensor cores. Thread t of
+// CTA i owns output pixel 128 i + t and all its channels. The CTA's 128
+// output rows are one contiguous run of y: they are staged in shared memory
+// and written as whole 16-byte chunks, neighbouring threads neighbouring
+// chunks (a thread storing its own row would half-fill every sector).
+__global__ void __launch_bounds__(kDirectThreads)
+conv_bnstat_direct(const Conv p) {
+  __shared__ __align__(16) float w_s[kDirectK][kDirectN];
+  __shared__ float tile[kDirectThreads][kDirectN + 1];
+  __shared__ __align__(16) uint8_t y_s[kDirectThreads * kDirectPitch];
+  __shared__ float red_sum[kDirectParts][kDirectN];
+  __shared__ float red_sq[kDirectParts][kDirectN];
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* w = static_cast<const bf16*>(p.wt);
+  const int tid = threadIdx.x;
+  const int m0 = static_cast<int>(blockIdx.x) * kDirectThreads;
+
+  for (int i = tid; i < kDirectK * kDirectN; i += kDirectThreads) {
+    const int o = i % kDirectN;
+    const int k = i / kDirectN;
+    w_s[k][o] = o < p.cout ? __bfloat162float(w[o * kDirectK + k]) : 0.0f;
+  }
+  float xin[kDirectK];
+#pragma unroll
+  for (int k = 0; k < kDirectK; ++k) xin[k] = 0.0f;
+  const Row r = row_of(p, m0 + tid);
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      const int iy = r.iy0 + ky;
+      const int ix = r.ix0 + kx;
+      if (iy >= 0 && iy < p.h && ix >= 0 && ix < p.w) {
+        const bf16* src = x + static_cast<int64_t>(r.pix + iy * p.w + ix) * 3;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          xin[(ky * 3 + kx) * 3 + c] = __bfloat162float(src[c]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  float acc[kDirectN];
+#pragma unroll
+  for (int o = 0; o < kDirectN; ++o) acc[o] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kDirectK; ++k) {
+#pragma unroll
+    for (int o = 0; o < kDirectN; o += 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(&w_s[k][o]);
+      acc[o] = __fmaf_rn(xin[k], wv.x, acc[o]);
+      acc[o + 1] = __fmaf_rn(xin[k], wv.y, acc[o + 1]);
+      acc[o + 2] = __fmaf_rn(xin[k], wv.z, acc[o + 2]);
+      acc[o + 3] = __fmaf_rn(xin[k], wv.w, acc[o + 3]);
+    }
+  }
+
+  // rows past M hold zeros, which add nothing to the sums
+#pragma unroll
+  for (int o = 0; o < kDirectN; ++o) tile[tid][o] = acc[o];
+#pragma unroll
+  for (int o = 0; o < kDirectN; o += 8) {
+    alignas(16) __nv_bfloat162 v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = __floats2bfloat162_rn(acc[o + 2 * e], acc[o + 2 * e + 1]);
+    }
+    *reinterpret_cast<uint4*>(&y_s[tid * kDirectPitch + o * sizeof(bf16)]) =
+        *reinterpret_cast<uint4*>(v);
+  }
+  __syncthreads();
+  const int chunks_per_row = p.cout / 8;
+  const int rows = min(kDirectThreads, p.m - m0);
+  uint4* dst = reinterpret_cast<uint4*>(
+      static_cast<bf16*>(p.y) + static_cast<int64_t>(m0) * p.cout);
+  for (int i = tid; i < rows * chunks_per_row; i += kDirectThreads) {
+    const int row = i / chunks_per_row;
+    const int chunk = i - row * chunks_per_row;
+    dst[i] = *reinterpret_cast<const uint4*>(
+        &y_s[row * kDirectPitch + chunk * 16]);
+  }
+  // column sums: thread (col, part) sums 32 of the 128 rows in order
+  const int col = tid % kDirectN;
+  const int part = tid / kDirectN;
+  float s = 0.0f, q = 0.0f;
+  for (int i = 0; i < 32; ++i) {
+    const float v = tile[part * 32 + i][col];
+    s += v;
+    q = __fmaf_rn(v, v, q);
+  }
+  red_sum[part][col] = s;
+  red_sq[part][col] = q;
+  write_partials<kDirectParts, kDirectN>(
+      p.part_sum, p.part_sq, p.cout, red_sum, red_sq,
+      static_cast<int>(blockIdx.x), 0);
 }
 
 template <bool kVec>
@@ -417,7 +419,8 @@ conv_bnstat_f32(const Conv p) {
       red_sq[warp][tx + 16 * j] = q;
     }
   }
-  write_partials<kThreads / 32>(p, red_sum, red_sq, m_tile, n0);
+  write_partials<kWarps, kBN>(p.part_sum, p.part_sq, p.cout, red_sum, red_sq,
+                              m_tile, n0);
 }
 
 // Column sums of the (tiles, cout) partials, in double, in a fixed order:
@@ -452,6 +455,36 @@ bnstat_reduce(const float* part_sum, const float* part_sq, float* sum,
   }
 }
 
+template <int BN, bool kAsync>
+cudaError_t launch_wgmma(const igemm::Conv& g, const Stats& p,
+                         cudaStream_t s) {
+  static bool allowed[igemm::kMaxDevices];
+  const int smem = igemm::smem_bytes<BN>();
+  const cudaError_t err = igemm::allow_smem(conv_bnstat_wgmma<BN, kAsync>,
+                                            smem, allowed);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      static_cast<unsigned>((g.m + kBM - 1) / kBM) * g.n_tiles;
+  conv_bnstat_wgmma<BN, kAsync><<<blocks, igemm::kThreads, smem, s>>>(g, p);
+  return cudaGetLastError();
+}
+
+template <bool kAsync>
+cudaError_t launch_bn(int bn, const igemm::Conv& g, const Stats& p,
+                         cudaStream_t s) {
+  switch (bn) {
+    case 256: return launch_wgmma<256, kAsync>(g, p, s);
+    case 128: return launch_wgmma<128, kAsync>(g, p, s);
+    case 64: return launch_wgmma<64, kAsync>(g, p, s);
+    case 32: return launch_wgmma<32, kAsync>(g, p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 }  // namespace
 
 // Number of M tiles, i.e. rows of the partials buffers, for batch*h*w pixels.
@@ -464,63 +497,83 @@ extern "C" int yolo_conv3x3_bnstat_tiles(int batch, int h, int w) {
 // w, cin) contiguous; wt: (cout, 3, 3, cin) contiguous; y: (batch, h, w,
 // cout) contiguous; all f32 (is_bf16 = 0) or all bf16 (1). part_sum and
 // part_sq: scratch of yolo_conv3x3_bnstat_tiles(batch, h, w) * cout floats
-// each. sum, sq: (cout,) f32 outputs. vec = 1 requires cin % 8 == 0 (bf16)
-// or cin % 4 == 0 (f32) and x and wt 16-byte aligned. Launches both kernels
-// on `stream` and returns cudaGetLastError().
+// each. sum, sq: (cout,) f32 outputs. `instance` names the kernel:
+//   0  any shape and alignment, operands gathered element by element;
+//   1  16-byte loads (bf16: cp.async): cin % 8 == 0 (bf16) or cin % 4 == 0
+//      (f32) and x and wt 16-byte aligned;
+//   2  bf16 only, the direct kernel: cin == 3, cout <= 32, cout % 8 == 0 and
+//      y 16-byte aligned.
+// `bn` is the output-channel tile of the bf16 instances 0 and 1: 256, 128,
+// 64 or 32 (the f32 kernels' tile is 128). An instance whose conditions do
+// not hold is refused with cudaErrorInvalidValue. Launches on `stream` and
+// returns the first CUDA error, or 0.
 extern "C" int yolo_conv3x3_bnstat(const void* x, const void* wt, void* y,
                                    float* part_sum, float* part_sq,
                                    float* sum, float* sq, int is_bf16,
                                    int batch, int h, int w, int cin, int cout,
-                                   int vec, void* stream) {
-  if (batch < 0 || h < 1 || w < 1 || cin < 1 || cout < 1 ||
-      (vec && cin % (is_bf16 ? 8 : 4) != 0)) {
+                                   int instance, int bn, void* stream) {
+  if (batch < 0 || h < 1 || w < 1 || cin < 1 || cout < 1 || instance < 0 ||
+      instance > (is_bf16 ? 2 : 1) || (!is_bf16 && bn != kBN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t m = static_cast<int64_t>(batch) * h * w;
-  const int64_t kdim = 9 * static_cast<int64_t>(cin);
-  const int n_tiles = (cout + kBN - 1) / kBN;
-  const int64_t m_tiles = (m + kBM - 1) / kBM;
-  const int64_t blocks = m_tiles * n_tiles;
-  if (m > INT32_MAX - kBM || blocks > INT32_MAX) {
+  if (instance == 1 && (cin % (is_bf16 ? 8 : 4) != 0 || !aligned16(x) ||
+                        !aligned16(wt))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (instance == 2 && (cin != 3 || cout > kDirectN || cout % 8 != 0 ||
+                        !aligned16(y))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  igemm::Conv g;
+  g.a = x;
+  g.b = wt;
+  if (!igemm::set_shape(&g, batch, h, w, cin, cout, 3, 1, 1,
+                        instance == 2 ? kDirectN : bn)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int m_tiles = (g.m + kBM - 1) / kBM;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m == 0) {
+  if (g.m == 0) {
     cudaMemsetAsync(sum, 0, cout * sizeof(float), s);
     cudaMemsetAsync(sq, 0, cout * sizeof(float), s);
     return static_cast<int>(cudaGetLastError());
   }
-  Conv p;
-  p.x = x;
-  p.wt = wt;
-  p.y = y;
-  p.part_sum = part_sum;
-  p.part_sq = part_sq;
-  p.h = h;
-  p.w = w;
-  p.cin = cin;
-  p.cout = cout;
-  p.m = static_cast<int>(m);
-  p.kdim = static_cast<int>(kdim);
-  p.n_tiles = n_tiles;
-  const unsigned nb = static_cast<unsigned>(blocks);
-  if (is_bf16) {
-    if (vec) {
-      conv_bnstat_bf16<true><<<nb, kThreads, 0, s>>>(p);
-    } else {
-      conv_bnstat_bf16<false><<<nb, kThreads, 0, s>>>(p);
-    }
+  cudaError_t err;
+  if (is_bf16 && instance != 2) {
+    Stats p;
+    p.y = static_cast<bf16*>(y);
+    p.part_sum = part_sum;
+    p.part_sq = part_sq;
+    p.y_vec = cout % 8 == 0 && aligned16(y);
+    err = instance == 1 ? launch_bn<true>(bn, g, p, s)
+                        : launch_bn<false>(bn, g, p, s);
   } else {
-    if (vec) {
+    Conv p;
+    p.x = x;
+    p.wt = wt;
+    p.y = y;
+    p.part_sum = part_sum;
+    p.part_sq = part_sq;
+    p.h = h;
+    p.w = w;
+    p.cin = cin;
+    p.cout = cout;
+    p.m = g.m;
+    p.kdim = g.kdim;
+    p.n_tiles = g.n_tiles;
+    const unsigned nb = static_cast<unsigned>(m_tiles) * g.n_tiles;
+    if (is_bf16) {
+      conv_bnstat_direct<<<nb, kDirectThreads, 0, s>>>(p);
+    } else if (instance == 1) {
       conv_bnstat_f32<true><<<nb, kThreads, 0, s>>>(p);
     } else {
       conv_bnstat_f32<false><<<nb, kThreads, 0, s>>>(p);
     }
+    err = cudaGetLastError();
   }
-  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bnstat_reduce<<<(cout + kReduceX - 1) / kReduceX,
                   dim3(kReduceX, kReduceY), 0, s>>>(
-      part_sum, part_sq, sum, sq, static_cast<int>(m_tiles), cout);
+      part_sum, part_sq, sum, sq, m_tiles, cout);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // Int8 (w8a8) convolution for Hopper (sm_90a): an implicit GEMM on the int8
-// tensor cores, with the input quantized on load and the dequantize + bias +
-// activation epilogue fused.
+// tensor cores, with the input quantized by a prologue pass and the
+// dequantize + bias + activation epilogue fused.
 //
 // Replaces the Pallas TPU kernels tools/probe_int8_3x3.py:35
 // (pallas_conv3x3_int8), :75 (pallas_conv3x3_shiftgemm_int8) and :147
@@ -29,25 +29,31 @@
 // the bound is 3.78 ms summed over the layers: mostly bytes at the wide
 // early layers, operations at the deep ones.
 //
-// Design (a first, simple kernel: mma.sync without a pipeline; wgmma, TMA and
-// multi-stage cp.async are later work):
+// Design:
 // - GEMM view: M = batch*Ho*Wo output pixels, N = Cout, K = k*k*Cin in
 //   (ky, kx, c) order. The weights come as OIHW in channels-last memory,
 //   i.e. (Cout, kh, kw, Cin) bytes, so each output channel's K is contiguous.
-// - One CTA of 8 warps per 128 x 128 output tile; K steps of 64 bytes. Each
-//   step gathers the A tile from the NHWC input (zeros at the padded border
-//   and past K), quantizes it while staging it in shared memory, and copies
-//   the B tile of weights. The 128-wide N tile keeps the number of times an
-//   input element is re-gathered and re-quantized (once per N tile) low: the
-//   IEEE division of the quantize, not the tensor cores, is the costliest
-//   part of the A path.
-// - Each warp owns a 64 x 32 sub-tile: 4 x 4 mma.sync m16n8k32 s8 products
-//   per 32 bytes of K, accumulated in int32 registers. Shared-memory rows are
-//   padded to 80 bytes, so the fragment loads (one 32-bit word per register)
-//   hit 32 distinct banks.
-// - Inputs with Cin % 16 == 0 (all of yolov3 but its first conv) load 8
-//   channels per thread with 16-byte loads; the rest (Cin = 3) gathers byte
-//   by byte and zero-fills the K tail.
+// - The quantize is a pass of its own, quantize_act: it reads the NHWC input
+//   once with 16-byte loads and writes it as int8 with 8-byte stores into a
+//   scratch tensor of the caller's, bytes bound. Each element pays its IEEE
+//   division once, not once per tap and N tile, and the GEMM's A operand
+//   becomes plain int8 bytes that cp.async can copy. This is the order of
+//   conv2d_int8 in the JAX package (quantize, then the conv), so results are
+//   bit for bit the same. Its cost: the int8 copy is written and read once
+//   more than the function's own bytes (the bound counts the input once).
+// - Cin % 16 == 0 and 16-byte aligned operands (every yolov3 conv but the
+//   first): igemm_sm90.cuh's main loop, a ring of cp.async stages of
+//   128-byte-swizzled tiles read by wgmma m64nBNk32 s8 -> s32, 128 x BN
+//   output tiles with BN in {128, 64, 32} chosen by the caller from Cout.
+//   Other Cin or unaligned weights fill the same ring element by element.
+// - Cin = 3, k = 3, Cout <= 32 (the first conv, bytes bound): a direct
+//   kernel, one thread per output pixel. It quantizes its 27 inputs in
+//   registers (no scratch pass), packs them four to a word, and takes the
+//   int32 dot products with dp4a against the packed weights in shared
+//   memory; 16-byte stores. No tensor cores: K = 27 would idle most of a tile.
+// - Epilogue of the wgmma instances: dequantize + bias + activation on the
+//   accumulator fragments, staged through the freed ring and written 16
+//   bytes a thread along Cout.
 // - CTAs are numbered N tile fastest, so the CTAs that share an A tile run
 //   together and find it in L2.
 
@@ -55,29 +61,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "igemm_sm90.cuh"
+
 namespace {
 
-constexpr int kBM = 128;                        // output pixels per CTA
-constexpr int kBN = 128;                        // output channels per CTA
-constexpr int kBK = 64;                         // K bytes per step
-constexpr int kLd = kBK + 16;                   // padded shared-memory row
-constexpr int kThreads = 256;                   // 8 warps, 2 (M) x 4 (N)
-constexpr int kChunks = kBK / 8;                // 8-byte A chunks per row
-constexpr int kRowsPerPass = kThreads / kChunks;
-constexpr int kPasses = kBM / kRowsPerPass;     // A rows per thread
-constexpr int kBChunks = kBN * kBK / 16 / kThreads;  // 16-byte B chunks
+constexpr int kBM = igemm::kBM;                 // output pixels per CTA
+constexpr int kQuantThreads = 256;
+constexpr int kDirectThreads = kBM;             // one output pixel each
+constexpr int kDirectK = 27;
+constexpr int kDirectWords = 7;                 // 27 bytes of K, padded to 28
+constexpr int kDirectN = 32;
 constexpr float kAlpha = 0.1f;
 constexpr float kAlphaBf16 = 0.10009765625f;    // bf16(0.1)
 
-struct Conv {
-  const void* x;        // (batch, h, w, cin) f32 or bf16
-  const int8_t* wq;     // (cout, k, k, cin)
+// What the epilogue needs beside the accumulators.
+struct Epilogue {
   const float* s_w;     // (cout,)
   const float* bias;    // (cout,)
   void* y;              // (batch, ho, wo, cout) f32 or bf16
   float s_x;
-  int h, w, cin, ho, wo, cout, k, stride, pad, leaky;
-  int m, kdim, n_tiles;
+  int leaky;
+  int y_vec;            // y rows take 16-byte stores
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -114,323 +118,363 @@ __device__ __forceinline__ uint32_t quant4(const float* v, float s) {
          (quant(v[3], s) << 24);
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// Both values rounded to bf16 and widened again. The packed conversion
+// (cvt.rn.bf16x2.f32) issues at the full rate; the scalar one does not, and
+// the bf16 epilogue rounds five times per output.
+__device__ __forceinline__ float2 bf16_round2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
 
-__device__ __forceinline__ float epilogue(int acc, float sc, float b,
-                                          int leaky, float) {
-  float y = __fmaf_rn(__int2float_rn(acc), sc, b);
-  if (leaky) y = fmaxf(__fmul_rn(y, kAlpha), y);
+// The epilogue of two neighbouring output channels: accumulators a0 and a1,
+// scales sc = s_x * s_w and biases b of the two.
+__device__ __forceinline__ float2 epilogue2(int a0, int a1, float2 sc,
+                                            float2 b, int leaky, float) {
+  float2 y = make_float2(__fmaf_rn(__int2float_rn(a0), sc.x, b.x),
+                         __fmaf_rn(__int2float_rn(a1), sc.y, b.y));
+  if (leaky) {
+    y.x = fmaxf(__fmul_rn(y.x, kAlpha), y.x);
+    y.y = fmaxf(__fmul_rn(y.y, kAlpha), y.y);
+  }
   return y;
 }
 
-__device__ __forceinline__ __nv_bfloat16 epilogue(int acc, float sc, float b,
-                                                  int leaky, __nv_bfloat16) {
-  const float a = bf16_round(__int2float_rn(acc));
-  const float m = bf16_round(__fmul_rn(a, bf16_round(sc)));
-  float y = bf16_round(__fadd_rn(m, bf16_round(b)));
-  if (leaky) y = fmaxf(bf16_round(__fmul_rn(y, kAlphaBf16)), y);
-  return __float2bfloat16_rn(y);
+__device__ __forceinline__ __nv_bfloat162 epilogue2(int a0, int a1, float2 sc,
+                                                    float2 b, int leaky,
+                                                    __nv_bfloat16) {
+  const float2 a = bf16_round2(__int2float_rn(a0), __int2float_rn(a1));
+  const float2 s = bf16_round2(sc.x, sc.y);
+  const float2 c = bf16_round2(b.x, b.y);
+  const float2 m = bf16_round2(__fmul_rn(a.x, s.x), __fmul_rn(a.y, s.y));
+  float2 y = bf16_round2(__fadd_rn(m.x, c.x), __fadd_rn(m.y, c.y));
+  if (leaky) {
+    const float2 l = bf16_round2(__fmul_rn(y.x, kAlphaBf16),
+                                 __fmul_rn(y.y, kAlphaBf16));
+    y.x = fmaxf(l.x, y.x);
+    y.y = fmaxf(l.y, y.y);
+  }
+  return __floats2bfloat162_rn(y.x, y.y);      // exact: both are bf16 values
 }
 
-__device__ __forceinline__ void store2(float* p, float a, float b, bool pair) {
-  if (pair) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  } else {
-    p[0] = a;
+__device__ __forceinline__ void store_pair(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p,
+                                           __nv_bfloat162 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+// q[i] = clamp(rint(x[i] / s), -127, 127) for i < n. With `vec` (x 16-byte
+// aligned, q 8-byte aligned) a thread takes 8 elements at a time; the
+// ragged end, or everything without `vec`, goes element by element.
+template <typename Tin>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_act(const Tin* __restrict__ x, int8_t* __restrict__ q, int64_t n,
+             float s, int vec) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kQuantThreads +
+                      threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kQuantThreads;
+  const int64_t n8 = vec ? n / 8 : 0;
+  for (int64_t i = tid; i < n8; i += step) {
+    float v[8];
+    load8(x + 8 * i, v);
+    *reinterpret_cast<uint2*>(q + 8 * i) =
+        make_uint2(quant4(v, s), quant4(v + 4, s));
+  }
+  for (int64_t i = 8 * n8 + tid; i < n; i += step) {
+    q[i] = static_cast<int8_t>(quant(to_float(x[i]), s));
   }
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, __nv_bfloat16 a,
-                                       __nv_bfloat16 b, bool pair) {
-  if (pair) {
-    __nv_bfloat162 v;
-    v.x = a;
-    v.y = b;
-    *reinterpret_cast<__nv_bfloat162*>(p) = v;
-  } else {
-    p[0] = a;
+// int8 A and B through the shared wgmma main loop, then the epilogue on the
+// int32 fragments, staged through the ring.
+template <typename Tout, int BN, bool kAsync>
+__global__ void __launch_bounds__(igemm::kThreads, igemm::ctas_per_sm<BN>())
+conv_int8_wgmma(const igemm::Conv g, const Epilogue p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = igemm::align_1024(smem_raw);
+  const int n0 = static_cast<int>(blockIdx.x % g.n_tiles) * BN;
+  const int m0 = static_cast<int>(blockIdx.x / g.n_tiles) * kBM;
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  igemm::mainloop<uint8_t, BN, kAsync>(g, m0, n0, ring, acc);
+
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = igemm::frag_col(j);
+    const int n = n0 + col;
+    const bool in0 = n < g.cout, in1 = n + 1 < g.cout;
+    const float2 sc =
+        make_float2(in0 ? __fmul_rn(p.s_x, p.s_w[n]) : 0.0f,
+                    in1 ? __fmul_rn(p.s_x, p.s_w[n + 1]) : 0.0f);
+    const float2 b = make_float2(in0 ? p.bias[n] : 0.0f,
+                                 in1 ? p.bias[n + 1] : 0.0f);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      store_pair(igemm::tile_at<Tout, BN>(ring, igemm::frag_row(half), col),
+                 epilogue2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1],
+                           sc, b, p.leaky, Tout()));
+    }
   }
+  __syncthreads();
+  igemm::copy_tile_out<Tout, BN>(ring, static_cast<Tout*>(p.y), m0, n0, g.m,
+                                 g.cout, p.y_vec != 0);
 }
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
-                                       const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <typename Tin, typename Tout, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-conv_int8_kernel(const Conv p) {
-  __shared__ __align__(16) int8_t a_s[kBM * kLd];
-  __shared__ __align__(16) int8_t b_s[kBN * kLd];
-
-  const Tin* x = static_cast<const Tin*>(p.x);
+// Cin = 3, k = 3, Cout <= 32 and Cout % 8 == 0: no tensor cores, and the
+// quantize in registers. Thread t of CTA i owns output pixel 128 i + t. The
+// CTA's 128 output rows are one contiguous run of y: they are staged in
+// shared memory and written as whole 16-byte chunks, neighbouring threads
+// neighbouring chunks (a thread storing its own row would half-fill every
+// sector).
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kDirectThreads)
+conv_int8_direct(const igemm::Conv g, const Epilogue p) {
+  constexpr int kEPV = 16 / sizeof(Tout);       // elements per 16 bytes
+  constexpr int kPitch = kDirectN * sizeof(Tout) + 16;
+  __shared__ __align__(16) int w_s[kDirectWords][kDirectN];
+  __shared__ __align__(16) uint8_t y_s[kDirectThreads * kPitch];
+  __shared__ float sc_s[kDirectN];
+  __shared__ float b_s[kDirectN];
+  const Tin* x = static_cast<const Tin*>(g.a);
+  const int8_t* wq = static_cast<const int8_t*>(g.b);
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;      // mma groupID
-  const int t = lane & 3;       // mma threadID_in_group
-  const int wm = warp >> 2;     // warp's 64-row slice of the tile
-  const int wn = warp & 3;      // warp's 32-column slice
-  const int n0 = static_cast<int>(blockIdx.x % p.n_tiles) * kBN;
-  const int m0 = static_cast<int>(blockIdx.x / p.n_tiles) * kBM;
+  const int m0 = static_cast<int>(blockIdx.x) * kDirectThreads;
+  const int m = m0 + tid;
 
-  // The A rows this thread gathers, row = tid / kChunks + pass *
-  // kRowsPerPass, and the 8-byte K chunk it owns in each.
-  const int chunk = tid % kChunks;
-  int pix[kPasses], iy0[kPasses], ix0[kPasses];
+  // word j of channel o: weight bytes 4 j .. 4 j + 3 of its 27, then zeros
+  for (int i = tid; i < kDirectWords * kDirectN; i += kDirectThreads) {
+    const int o = i % kDirectN;
+    const int j = i / kDirectN;
+    uint32_t word = 0u;
 #pragma unroll
-  for (int i = 0; i < kPasses; ++i) {
-    const int m = m0 + tid / kChunks + i * kRowsPerPass;
-    if (m < p.m) {
-      const int hw = p.ho * p.wo;
-      const int b = m / hw;
-      const int r = m - b * hw;
-      const int oy = r / p.wo;
-      const int ox = r - oy * p.wo;
-      pix[i] = b * p.h * p.w;
-      iy0[i] = oy * p.stride - p.pad;
-      ix0[i] = ox * p.stride - p.pad;
-    } else {
-      pix[i] = 0;
-      iy0[i] = -(1 << 28);      // never in bounds: the row gathers zeros
-      ix0[i] = 0;
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * j + e;
+      if (o < g.cout && k < kDirectK) {
+        word |= (static_cast<uint32_t>(wq[o * kDirectK + k]) & 0xffu)
+                << (8 * e);
+      }
+    }
+    w_s[j][o] = static_cast<int>(word);
+  }
+  if (tid < kDirectN) {
+    const bool in = tid < g.cout;
+    sc_s[tid] = in ? __fmul_rn(p.s_x, p.s_w[tid]) : 0.0f;
+    b_s[tid] = in ? p.bias[tid] : 0.0f;
+  }
+
+  uint32_t qw[kDirectWords];
+#pragma unroll
+  for (int j = 0; j < kDirectWords; ++j) qw[j] = 0u;
+  if (m < g.m) {
+    const int hw = g.ho * g.wo;
+    const int img = m / hw;
+    const int rem = m - img * hw;
+    const int oy = rem / g.wo;
+    const int iy0 = oy * g.stride - g.pad;
+    const int ix0 = (rem - oy * g.wo) * g.stride - g.pad;
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        const int iy = iy0 + ky;
+        const int ix = ix0 + kx;
+        if (iy >= 0 && iy < g.h && ix >= 0 && ix < g.w) {
+          const Tin* src =
+              x + (static_cast<int64_t>(img) * g.h * g.w + iy * g.w + ix) * 3;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const int k = (ky * 3 + kx) * 3 + c;
+            qw[k / 4] |= quant(to_float(src[c]), p.s_x) << (8 * (k % 4));
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  int acc[kDirectN];
+#pragma unroll
+  for (int o = 0; o < kDirectN; ++o) acc[o] = 0;
+#pragma unroll
+  for (int j = 0; j < kDirectWords; ++j) {
+    const int a = static_cast<int>(qw[j]);
+#pragma unroll
+    for (int o = 0; o < kDirectN; o += 4) {
+      const int4 wv = *reinterpret_cast<const int4*>(&w_s[j][o]);
+      acc[o] = __dp4a(a, wv.x, acc[o]);
+      acc[o + 1] = __dp4a(a, wv.y, acc[o + 1]);
+      acc[o + 2] = __dp4a(a, wv.z, acc[o + 2]);
+      acc[o + 3] = __dp4a(a, wv.w, acc[o + 3]);
     }
   }
 
-  int acc[4][4][4];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int o = 0; o < kDirectN; o += kEPV) {
+    alignas(16) Tout v[kEPV];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
-
-  const int kw_cin = p.k * p.cin;
-  for (int k0 = 0; k0 < p.kdim; k0 += kBK) {
-    // A: gather, quantize, stage
-    const int kk = k0 + chunk * 8;
-    if (kVec) {
-      // Cin % 16 == 0: the chunk's 8 channels share one (ky, kx)
-      const bool k_in = kk < p.kdim;
-      int ky = 0, kx = 0, c = 0;
-      if (k_in) {
-        ky = kk / kw_cin;
-        const int r = kk - ky * kw_cin;
-        kx = r / p.cin;
-        c = r - kx * p.cin;
-      }
-#pragma unroll
-      for (int i = 0; i < kPasses; ++i) {
-        uint2 q = make_uint2(0u, 0u);
-        const int iy = iy0[i] + ky;
-        const int ix = ix0[i] + kx;
-        if (k_in && iy >= 0 && iy < p.h && ix >= 0 && ix < p.w) {
-          float v[8];
-          load8(x + static_cast<int64_t>(pix[i] + iy * p.w + ix) * p.cin + c,
-                v);
-          q.x = quant4(v, p.s_x);
-          q.y = quant4(v + 4, p.s_x);
-        }
-        *reinterpret_cast<uint2*>(
-            &a_s[(tid / kChunks + i * kRowsPerPass) * kLd + chunk * 8]) = q;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPasses; ++i) {
-        float v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          v[j] = 0.0f;
-          const int kj = kk + j;
-          if (kj < p.kdim) {
-            const int ky = kj / kw_cin;
-            const int r = kj - ky * kw_cin;
-            const int kx = r / p.cin;
-            const int c = r - kx * p.cin;
-            const int iy = iy0[i] + ky;
-            const int ix = ix0[i] + kx;
-            if (iy >= 0 && iy < p.h && ix >= 0 && ix < p.w) {
-              v[j] = to_float(
-                  x[static_cast<int64_t>(pix[i] + iy * p.w + ix) * p.cin + c]);
-            }
-          }
-        }
-        // zeros quantize to zero, so padding and the K tail stay zero
-        *reinterpret_cast<uint2*>(
-            &a_s[(tid / kChunks + i * kRowsPerPass) * kLd + chunk * 8]) =
-            make_uint2(quant4(v, p.s_x), quant4(v + 4, p.s_x));
-      }
+    for (int e = 0; e < kEPV; e += 2) {
+      store_pair(&v[e], epilogue2(
+          acc[o + e], acc[o + e + 1],
+          make_float2(sc_s[o + e], sc_s[o + e + 1]),
+          make_float2(b_s[o + e], b_s[o + e + 1]), p.leaky, Tout()));
     }
-
-    // B: weights (cout, K), 16 bytes per chunk
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int id = tid + i * kThreads;
-      const int n = id / (kBK / 16);
-      const int kc = (id % (kBK / 16)) * 16;
-      const int gn = n0 + n;
-      const int gk = k0 + kc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gn < p.cout) {
-        const int8_t* src = p.wq + static_cast<int64_t>(gn) * p.kdim + gk;
-        if (kVec) {
-          if (gk < p.kdim) v = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-          uint32_t word[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            if (gk + j < p.kdim) {
-              word[j / 4] |= (static_cast<uint32_t>(src[j]) & 0xffu)
-                             << (8 * (j % 4));
-            }
-          }
-          v = make_uint4(word[0], word[1], word[2], word[3]);
-        }
-      }
-      *reinterpret_cast<uint4*>(&b_s[n * kLd + kc]) = v;
-    }
-    __syncthreads();
-
-    // tensor cores: mma fragments per the PTX ISA's m16n8k32 .s8 layout
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* r0 = &a_s[(wm * 64 + mi * 16 + g) * kLd + ks + t * 4];
-        const int8_t* r8 = r0 + 8 * kLd;
-        af[mi][0] = lds32(r0);
-        af[mi][1] = lds32(r8);
-        af[mi][2] = lds32(r0 + 16);
-        af[mi][3] = lds32(r8 + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* c0 = &b_s[(wn * 32 + ni * 8 + g) * kLd + ks + t * 4];
-        bf[ni][0] = lds32(c0);
-        bf[ni][1] = lds32(c0 + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
+    *reinterpret_cast<uint4*>(&y_s[tid * kPitch + o * sizeof(Tout)]) =
+        *reinterpret_cast<uint4*>(v);
   }
+  __syncthreads();
+  const int chunks_per_row = g.cout / kEPV;
+  const int rows = min(kDirectThreads, g.m - m0);
+  uint4* dst = reinterpret_cast<uint4*>(
+      static_cast<Tout*>(p.y) + static_cast<int64_t>(m0) * g.cout);
+  for (int i = tid; i < rows * chunks_per_row; i += kDirectThreads) {
+    const int row = i / chunks_per_row;
+    const int chunk = i - row * chunks_per_row;
+    dst[i] = *reinterpret_cast<const uint4*>(&y_s[row * kPitch + chunk * 16]);
+  }
+}
 
-  // epilogue: accumulator c[0..1] is row g, columns 2t, 2t+1; c[2..3] row g+8
-  Tout* y = static_cast<Tout*>(p.y);
-  const bool even = (p.cout & 1) == 0;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int n = n0 + wn * 32 + ni * 8 + 2 * t;
-    if (n >= p.cout) continue;
-    const bool two = n + 1 < p.cout;
-    const float sc0 = __fmul_rn(p.s_x, p.s_w[n]);
-    const float b0 = p.bias[n];
-    const float sc1 = two ? __fmul_rn(p.s_x, p.s_w[n + 1]) : 0.0f;
-    const float b1 = two ? p.bias[n + 1] : 0.0f;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 64 + mi * 16 + g + half * 8;
-        if (m >= p.m) continue;
-        Tout* dst = y + static_cast<int64_t>(m) * p.cout + n;
-        const Tout v0 = epilogue(acc[mi][ni][2 * half], sc0, b0, p.leaky,
-                                 Tout());
-        const Tout v1 = epilogue(acc[mi][ni][2 * half + 1], sc1, b1, p.leaky,
-                                 Tout());
-        if (two && !even) {
-          dst[0] = v0;
-          dst[1] = v1;
-        } else {
-          store2(dst, v0, v1, two);
-        }
-      }
-    }
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <typename Tin>
+cudaError_t launch_quantize(const void* x, void* q, int64_t n, float s_x,
+                            cudaStream_t s) {
+  if (n == 0) return cudaSuccess;
+  const int vec = aligned16(x) && aligned16(q);
+  const int64_t work = vec ? (n + 7) / 8 : n;
+  const int64_t blocks = (work + kQuantThreads - 1) / kQuantThreads;
+  const unsigned nb = static_cast<unsigned>(blocks < 65536 * 16 ? blocks
+                                                                : 65536 * 16);
+  quantize_act<Tin><<<nb, kQuantThreads, 0, s>>>(
+      static_cast<const Tin*>(x), static_cast<int8_t*>(q), n, s_x, vec);
+  return cudaGetLastError();
+}
+
+template <typename Tout, int BN, bool kAsync>
+cudaError_t launch_wgmma(const igemm::Conv& g, const Epilogue& p,
+                         cudaStream_t s) {
+  static bool allowed[igemm::kMaxDevices];
+  const int smem = igemm::smem_bytes<BN>();
+  const cudaError_t err = igemm::allow_smem(
+      conv_int8_wgmma<Tout, BN, kAsync>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      static_cast<unsigned>((g.m + kBM - 1) / kBM) * g.n_tiles;
+  conv_int8_wgmma<Tout, BN, kAsync><<<blocks, igemm::kThreads, smem, s>>>(g,
+                                                                          p);
+  return cudaGetLastError();
+}
+
+template <typename Tout, bool kAsync>
+cudaError_t launch_bn(int bn, const igemm::Conv& g, const Epilogue& p,
+                         cudaStream_t s) {
+  switch (bn) {
+    case 128: return launch_wgmma<Tout, 128, kAsync>(g, p, s);
+    case 64: return launch_wgmma<Tout, 64, kAsync>(g, p, s);
+    case 32: return launch_wgmma<Tout, 32, kAsync>(g, p, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename Tin, typename Tout>
-void launch(const Conv& p, bool vec, unsigned blocks, cudaStream_t s) {
-  if (vec) {
-    conv_int8_kernel<Tin, Tout, true><<<blocks, kThreads, 0, s>>>(p);
-  } else {
-    conv_int8_kernel<Tin, Tout, false><<<blocks, kThreads, 0, s>>>(p);
-  }
+cudaError_t launch_direct(const igemm::Conv& g, const Epilogue& p,
+                          cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>((g.m + kBM - 1) / kBM);
+  conv_int8_direct<Tin, Tout><<<blocks, kDirectThreads, 0, s>>>(g, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// q = clamp(rint(x / s_x), -127, 127) as int8, for n elements of x, f32
+// (x_bf16 = 0) or bf16 (1): the int8 conv's prologue on its own. Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int yolo_quantize_act(const void* x, int x_bf16, void* q,
+                                 long long n, float s_x, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      x_bf16 ? launch_quantize<__nv_bfloat16>(x, q, n, s_x, s)
+             : launch_quantize<float>(x, q, n, s_x, s));
+}
+
 // One int8 convolution. x: (batch, h, w, cin) contiguous, f32 (x_bf16 = 0)
-// or bf16 (1). wq: (cout, ksize, ksize, cin) int8 contiguous. s_w, bias:
+// or bf16 (1). xq: int8 scratch of x's shape, 16-byte aligned (unused by
+// instance 2). wq: (cout, ksize, ksize, cin) int8 contiguous. s_w, bias:
 // (cout,) f32. y: (batch, ho, wo, cout) contiguous, f32 (y_bf16 = 0) or bf16
 // (1), ho = (h + 2*pad - ksize) / stride + 1 and likewise wo. s_x is the
-// input's quantization scale. vec = 1 requires cin % 16 == 0 and x and wq
-// 16-byte aligned. Launches on `stream` and returns cudaGetLastError().
-extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, const void* wq,
-                                float s_x, const void* s_w, const void* bias,
-                                void* y, int y_bf16, int batch, int h, int w,
-                                int cin, int cout, int ksize, int stride,
-                                int pad, int leaky, int vec, void* stream) {
+// input's quantization scale. `instance` names the kernel:
+//   0  quantize pass, then the wgmma GEMM with operands gathered element by
+//      element: any cin and any alignment of wq;
+//   1  quantize pass, then the wgmma GEMM fed by cp.async: cin % 16 == 0
+//      and wq 16-byte aligned;
+//   2  the direct kernel: cin == 3, ksize == 3, cout <= 32, cout % 8 == 0
+//      and y 16-byte aligned.
+// `bn` is the output-channel tile of instances 0 and 1: 128, 64 or 32. An
+// instance whose conditions do not hold is refused with
+// cudaErrorInvalidValue. Launches on `stream` and returns the first CUDA
+// error, or 0.
+extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, void* xq,
+                                const void* wq, float s_x, const void* s_w,
+                                const void* bias, void* y, int y_bf16,
+                                int batch, int h, int w, int cin, int cout,
+                                int ksize, int stride, int pad, int leaky,
+                                int instance, int bn, void* stream) {
   if (batch < 0 || h < 1 || w < 1 || cin < 1 || cout < 1 || ksize < 1 ||
-      stride < 1 || pad < 0 || (vec && cin % 16 != 0)) {
+      stride < 1 || pad < 0 || instance < 0 || instance > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Conv p;
-  p.x = x;
-  p.wq = static_cast<const int8_t*>(wq);
+  if (instance != 2 && !aligned16(xq)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (instance == 1 && (cin % 16 != 0 || !aligned16(wq))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (instance == 2 && (cin != 3 || ksize != 3 || cout > kDirectN ||
+                        cout % 8 != 0 || !aligned16(y))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  igemm::Conv g;
+  g.a = instance == 2 ? x : xq;
+  g.b = wq;
+  if (!igemm::set_shape(&g, batch, h, w, cin, cout, ksize, stride, pad,
+                        instance == 2 ? kDirectN : bn)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (g.m == 0) return 0;
+  Epilogue p;
   p.s_w = static_cast<const float*>(s_w);
   p.bias = static_cast<const float*>(bias);
   p.y = y;
   p.s_x = s_x;
-  p.h = h;
-  p.w = w;
-  p.cin = cin;
-  p.ho = (h + 2 * pad - ksize) / stride + 1;
-  p.wo = (w + 2 * pad - ksize) / stride + 1;
-  p.cout = cout;
-  p.k = ksize;
-  p.stride = stride;
-  p.pad = pad;
   p.leaky = leaky;
-  const int64_t m = static_cast<int64_t>(batch) * p.ho * p.wo;
-  const int64_t kdim = static_cast<int64_t>(ksize) * ksize * cin;
-  p.n_tiles = (cout + kBN - 1) / kBN;
-  const int64_t blocks = (m + kBM - 1) / kBM * p.n_tiles;
-  if (p.ho < 1 || p.wo < 1 || m > INT32_MAX - kBM || kdim > INT32_MAX ||
-      static_cast<int64_t>(batch) * h * w > INT32_MAX || blocks > INT32_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  p.m = static_cast<int>(m);
-  p.kdim = static_cast<int>(kdim);
-  if (m == 0) return 0;
+  p.y_vec = cout % (y_bf16 ? 8 : 4) == 0 && aligned16(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned nb = static_cast<unsigned>(blocks);
-  const bool v = vec != 0;
-  if (x_bf16) {
-    if (y_bf16) {
-      launch<__nv_bfloat16, __nv_bfloat16>(p, v, nb, s);
+  cudaError_t err;
+  if (instance == 2) {
+    if (x_bf16) {
+      err = y_bf16 ? launch_direct<__nv_bfloat16, __nv_bfloat16>(g, p, s)
+                   : launch_direct<__nv_bfloat16, float>(g, p, s);
     } else {
-      launch<__nv_bfloat16, float>(p, v, nb, s);
+      err = y_bf16 ? launch_direct<float, __nv_bfloat16>(g, p, s)
+                   : launch_direct<float, float>(g, p, s);
     }
-  } else {
-    if (y_bf16) {
-      launch<float, __nv_bfloat16>(p, v, nb, s);
-    } else {
-      launch<float, float>(p, v, nb, s);
-    }
+    return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t n = static_cast<int64_t>(batch) * h * w * cin;
+  err = x_bf16 ? launch_quantize<__nv_bfloat16>(x, xq, n, s_x, s)
+               : launch_quantize<float>(x, xq, n, s_x, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (instance == 1) {
+    err = y_bf16 ? launch_bn<__nv_bfloat16, true>(bn, g, p, s)
+                 : launch_bn<float, true>(bn, g, p, s);
+  } else {
+    err = y_bf16 ? launch_bn<__nv_bfloat16, false>(bn, g, p, s)
+                 : launch_bn<float, false>(bn, g, p, s);
+  }
+  return static_cast<int>(err);
 }

@@ -30,11 +30,14 @@ import torch
 import torch.nn.functional as F
 
 from yolo_tensorflow_tpu_torch.ops import layers as L
-from yolo_tensorflow_tpu_torch.ops.kernels import build
+from yolo_tensorflow_tpu_torch.ops.kernels import build, igemm
 
 launches = 0
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the f32 FFMA kernel's two instances, by the C entry point's codes
+F32_INSTANCES = {"ffma_gather": 0, "ffma": 1}
+F32_BN = 128
 
 
 def _check(x, w):
@@ -72,11 +75,26 @@ def conv3x3_bnstat_plain(x, w):
             (a * a).sum(dim=(0, 2, 3)).to(wide))
 
 
+def plan(x, w):
+    """(instance, BN) of the kernel that a CUDA x and w launch: for bf16 the
+    shared wgmma main loop fed by cp.async (``wgmma``) or element by element
+    (``gather``), or the direct first-conv kernel; for f32 the FFMA kernel
+    with 16-byte loads (``ffma``) or without."""
+    cin, cout = w.shape[1], w.shape[0]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if x.dtype == torch.bfloat16:
+        return (igemm.pick_instance(cin, cout, 3, 2, aligned),
+                igemm.pick_bn(cout, 2))
+    return "ffma" if aligned and cin % 4 == 0 else "ffma_gather", F32_BN
+
+
 def _launch(x, w):
     global launches
     batch, cin, h, wd = x.shape
     cout = w.shape[0]
     bf16 = x.dtype == torch.bfloat16
+    instance, bn = plan(x, w)
+    code = (igemm.INSTANCES if bf16 else F32_INSTANCES)[instance]
     y = torch.empty((batch, cout, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     lib = build.load()
@@ -84,14 +102,12 @@ def _launch(x, w):
     part = torch.empty((2, tiles, cout), dtype=torch.float32,
                        device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    vec = (cin % (8 if bf16 else 4) == 0 and x.data_ptr() % 16 == 0
-           and w.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.yolo_conv3x3_bnstat(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            int(bf16), batch, h, wd, cin, cout, int(vec), stream)
+            int(bf16), batch, h, wd, cin, cout, code, bn, stream)
     if err != 0:
         raise RuntimeError(f"conv_bnstat kernel launch failed: CUDA error "
                            f"{err}")

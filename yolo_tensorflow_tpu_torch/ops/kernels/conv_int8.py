@@ -5,9 +5,11 @@ activation fused: quantize the input with its static scale s_x, convolve
 int8 x int8 with exact int32 accumulation, dequantize with s_x * s_w[o],
 add the bias, apply linear or leaky, all in ``epilogue_dtype``. On the TPU
 XLA emitted that conv; tools/probe_int8_3x3.py holds three Pallas versions
-of its accumulator. The kernel is ``csrc/conv_int8.cu`` (its header says
-what bounds it and how it is laid out). PyTorch has no int8 convolution on
-CUDA, so there is no library call that computes this.
+of its accumulator. The kernels are in ``csrc/conv_int8.cu`` (its header
+says what bounds them and how they are laid out): a quantize pass into an
+int8 scratch tensor, then the wgmma implicit GEMM with the fused epilogue;
+the first conv (Cin = 3) takes one direct kernel instead. PyTorch has no
+int8 convolution on CUDA, so there is no library call that computes this.
 
 Layouts are the port's: x is NCHW in channels-last memory (the NHWC bytes),
 w_q is OIHW int8 in channels-last memory (the (Cout, kh, kw, Cin) bytes the
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_tensorflow_tpu_torch.ops import layers as L
-from yolo_tensorflow_tpu_torch.ops.kernels import build
+from yolo_tensorflow_tpu_torch.ops.kernels import build, igemm
 
 launches = 0
 
@@ -58,6 +60,40 @@ def int8_accumulate(xq, w_q, *, stride: int = 1, pad: int = 0):
                     padding=pad).to(torch.int32)
 
 
+def quantize_act_plain(x, s_x):
+    """clamp(round(x / s_x), -127, 127) as int8, the division in float32 and
+    halves to even: yolo_tensorflow_tpu/ops/quant.conv2d_int8's quantize."""
+    s = torch.tensor(float(s_x), dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+
+
+def quantize_act(x, s_x):
+    """The int8 conv's prologue on its own: x (float32 or bfloat16,
+    contiguous in its memory format) quantized to int8 with scale s_x, in
+    x's shape and layout. The kernel on CUDA, the plain version on the CPU.
+    ``conv2d_int8`` runs the same pass itself; this entry exists to test and
+    time it, and does not count as a launch of the conv."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_act takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    if x.device.type == "cpu":
+        return quantize_act_plain(x, s_x)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_act runs on cpu or cuda, not {x.device}")
+    q = torch.empty_like(x, dtype=torch.int8)
+    if q.stride() != x.stride():
+        raise ValueError("quantize_act needs x dense in its memory format")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = build.load().yolo_quantize_act(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
+            x.numel(), float(s_x), stream)
+    if err != 0:
+        raise RuntimeError(f"quantize_act kernel launch failed: CUDA error "
+                           f"{err}")
+    return q
+
+
 def _column(v, dtype):
     return v.to(dtype).reshape(1, -1, 1, 1)
 
@@ -74,7 +110,7 @@ def conv2d_int8_plain(x, w_q, s_x, s_w, b, *, stride: int = 1,
     k = w_q.shape[-1]
     pad = k // 2 if pad is None else pad
     s = torch.tensor(float(s_x), dtype=torch.float32, device=x.device)
-    xq = torch.clamp(torch.round(x.float() / s), -127, 127)
+    xq = quantize_act_plain(x, s_x)
     acc = int8_accumulate(xq, w_q, stride=stride, pad=pad).float()
     sc = s * s_w.float()                       # f32, as the JAX epilogue
     if epilogue_dtype == torch.float32:
@@ -135,6 +171,17 @@ def conv2d_int8(x, w_q, s_x, s_w, b, *, stride: int = 1, pad: int = None,
                    epilogue_dtype)
 
 
+def plan(x, w_q):
+    """(instance, BN) of the kernel that a CUDA x and w_q launch: the wgmma
+    main loop fed by cp.async (``wgmma``) or element by element
+    (``gather``), both after the quantize pass, or the direct first-conv
+    kernel. The pass writes an aligned scratch tensor, so of the operands
+    only the weights' alignment matters."""
+    cout, cin, k = w_q.shape[0], w_q.shape[1], w_q.shape[-1]
+    return (igemm.pick_instance(cin, cout, k, 1, w_q.data_ptr() % 16 == 0),
+            igemm.pick_bn(cout, 1))
+
+
 def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype):
     global launches
     batch, cin, h, w = x.shape
@@ -144,16 +191,20 @@ def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype):
                     device=x.device, memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    vec = (cin % 16 == 0 and x.data_ptr() % 16 == 0
-           and w_q.data_ptr() % 16 == 0)
+    instance, bn = plan(x, w_q)
+    # the quantize pass's output, the GEMM's A operand (NHWC int8)
+    xq = (None if instance == "direct" else
+          torch.empty(x.numel(), dtype=torch.int8, device=x.device))
     lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.yolo_conv2d_int8(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), w_q.data_ptr(),
-            s_x, s_w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            x.data_ptr(), int(x.dtype == torch.bfloat16),
+            None if xq is None else xq.data_ptr(), w_q.data_ptr(), s_x,
+            s_w.data_ptr(), b.data_ptr(), y.data_ptr(),
             int(epilogue_dtype == torch.bfloat16), batch, h, w, cin, cout, k,
-            stride, pad, int(act == "leaky"), int(vec), stream)
+            stride, pad, int(act == "leaky"), igemm.INSTANCES[instance], bn,
+            stream)
     if err != 0:
         raise RuntimeError(f"int8 conv kernel launch failed: CUDA error "
                            f"{err}")
