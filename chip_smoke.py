@@ -10,8 +10,16 @@ failure is caught):
              BN statistics; the two convs share csrc/igemm_sm90.cuh) from
              yolo_tensorflow_tpu_torch/csrc, one nvcc process per source;
   3. kernel: the decode kernel against its plain PyTorch version on the same
-             CUDA tensors, at the yolov3-416 head shapes, f32 and bf16, with
-             both times from CUDA events;
+             CUDA tensors: at the yolov3-416 head shapes (sigmoid classes,
+             three scales in one launch) and at the yolov2 and
+             yolov2-tiny-voc region heads (softmax classes), f32 and bf16 at
+             batch 8 and bf16 at batch 64, and at the odd cases of
+             DECODE_ODD (1 and 7 classes, a 1x1 grid, batch 1, scales whose
+             rows are no multiple of the tile, a view off a 16-byte
+             boundary, alone and as the middle one of three scales); one
+             launch per decode_fused; device times from CUDA
+             events with the host kept ahead of the card, and the wrapper's
+             host time beside them;
   4. f32:    Detector("yolov3", <seeded .weights>).detect_batch at 416 on
              CUDA, through the decode kernel (its launch count is read around
              this run), against the same port on the CPU;
@@ -51,11 +59,24 @@ failure is caught):
              batch), seeded images and 8 truths per image: img/s as the
              median of 3 samples of 5 steps with the spread, the step split
              into forward, loss, backward and optimizer from CUDA events,
-             peak memory, and a finite cost at every step.
+             peak memory, and a finite cost at every step;
+ 11. yolov2 f32: Detector("yolov2", <seeded .weights>).detect_batch at 416,
+             batch 2, on CUDA (Darknet-19, darknet's reorg passthrough, the
+             decode kernel's softmax branch: one launch, counted) against
+             the same port on the CPU;
+ 12. yolov2 bf16: batch-64 bf16 serving throughput, its split into
+             backbone, decode and NMS, and darknet_reorg's device time;
+ 13. yolov1: Detector("yolov1", <seeded .weights>) at 448 (24 bias-only
+             convs, the 50176 -> 512 -> 4096 -> 1470 connected head, the
+             grid decode in plain PyTorch: the TPU kernel does not cover it
+             either), f32 batch 2 against the CPU port, then bf16 batch 64
+             with the same split and the three dense layers' device times.
 Then a JSON line describing each kernel, and last the JSON result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
-weights in the repository), at full Darknet-53 + FPN width, 80 classes.
+weights in the repository), at full width and depth: Darknet-53 + FPN
+(yolov3), Darknet-19 + passthrough (yolov2), 80 classes each, and the
+24-conv + 3-connected yolov1 with 20.
 Imports nothing of JAX: the machine with the card has none.
 """
 
@@ -77,8 +98,28 @@ SEED = 0
 OBJ_BIAS = -3.0          # keeps most seeded scores below 0.5: see phase 4
 CONF = 0.5               # the model's own confidence threshold
 KERNEL_BATCH = 8         # phase 3; the Pallas int8 probes' batch in phase 6
-PARITY_BATCH = 2         # phases 4, 6 and 7
-SERVE_BATCH = 64         # phases 5, 6 and 7
+PARITY_BATCH = 2         # phases 4, 6, 7, 11 and 13
+SERVE_BATCH = 64         # phases 5, 6, 7, 12 and 13
+# The region and grid models, (size bias, confidence threshold). With seeded
+# weights the softmax over yolov2's 80 near-equal class logits puts every
+# score under 0.22, so the model's own 0.5 would leave no detection: 0.1
+# leaves some 90 of the 845 boxes of an image. Its anchors span up to 0.75
+# of the image and seeded size logits have a deviation of 0.9, so unbiased
+# boxes come out 1.3-1.5 images wide, and a corner near 0 of such a box
+# carries the absolute error of its width (1e-5 on the card against the
+# CPU, measured): a bias of -1 on the size logits keeps the boxes inside
+# the image, as trained ones are, and PARITY_TOL as it is. yolov1 keeps its
+# own threshold of 0.2 (its scores are a product of two raw outputs).
+REGION = {"yolov2": (-1.0, 0.1), "yolov1": (0.0, 0.2)}
+# Odd decode cases, (classes, G, anchors a cell, batch): one class, rows of
+# 12 and 6 values, a 1x1 grid, batch 1, and row counts off every tile size
+# (45, 225, 3, 405, 1083 rows). Each runs with sigmoid and with softmax
+# classes, f32 and bf16, aligned and as a view one element off.
+DECODE_ODD = ((1, 3, 5, 1), (7, 5, 3, 3), (7, 1, 3, 1), (20, 9, 5, 1),
+              (1, 19, 3, 1))
+# and one launch of three scales ((G, anchor mask); 225, 729 and 3249 rows at
+# batch 3) whose middle scale is such a view
+DECODE_ODD_SCALES = ((5, (6, 7, 8)), (9, (3, 4, 5)), (19, (0, 1, 2)))
 # f32 kernel vs plain: the same float32 formulas, differing only in the
 # rounding of expf and of the softmax sum order: a few ulp. bf16 inputs
 # widen exactly to f32 in both, so the bf16 comparison holds to the same.
@@ -151,14 +192,19 @@ def require(cond, msg):
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+def cuda_ms(fn, iters=20, warmup=3, ahead_cycles=0):
     """Mean device time of fn() in ms, from CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls. ``ahead_cycles``: the card
+    first spins that many clock cycles, so that the host has queued every
+    call before the first one runs. Without it a kernel that is shorter
+    than its wrapper's host time measures the host."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if ahead_cycles:
+        torch.cuda._sleep(ahead_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -221,24 +267,25 @@ def unaligned(t):
     return view
 
 
-def check_detections(label, det, imgs, got, want, cfg, kind):
+def check_detections(label, det, imgs, got, want, cfg, kind, conf=CONF):
     """Card Detections (numpy) against the CPU port's: num, classes and
     valid equal, boxes and scores within PARITY_TOL, at least one detection
     per image, and no exactly tied score among any image's top 256 (the
     comparison would then depend on tie order). Returns max |err|."""
-    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.models import heads
     from yolo_tensorflow_tpu_torch.pipeline import normalize_images
     with torch.inference_mode():
         feats = det.network(normalize_images(
             torch.as_tensor(imgs, device=det.device), cfg))
-        scores = K.decode_plain(feats, cfg)[1]
-    top = torch.topk(scores, 256, dim=1).values
-    ties = [256 - torch.unique(row).numel() for row in top]
+        scores = heads.decode_scored(feats, cfg)[1]
+    k = min(256, scores.shape[1])
+    top = torch.topk(scores, k, dim=1).values
+    ties = [k - torch.unique(row).numel() for row in top]
     print(f"[{label}] scores in [{scores.min().item():.4g}, "
-          f"{scores.max().item():.4g}], {int((scores > CONF).sum())} "
-          f"above {CONF}; exact ties in each image's top 256: {ties}")
-    require(not any(ties), "tied top-256 scores: the comparison would "
-            "depend on tie order")
+          f"{scores.max().item():.4g}], {int((scores > conf).sum())} "
+          f"above {conf}; exact ties in each image's top {k}: {ties}")
+    require(not any(ties), "tied top scores: the comparison would depend "
+            "on tie order")
     require(np.all(got.num > 0), f"no detections: num={got.num}")
     for name in ("num", "classes", "valid"):
         require(np.array_equal(getattr(got, name), getattr(want, name)),
@@ -257,6 +304,135 @@ def check_detections(label, det, imgs, got, want, cfg, kind):
           f"port, max |err| boxes {err['boxes']:.3g} scores "
           f"{err['scores']:.3g} (tol {PARITY_TOL})")
     return err
+
+
+def decode_heads(gen, dev, batch, dtype, num_classes, scales):
+    """Seeded head scales [(feat (B, G, G, A*(5+C)), Detect)] on the card;
+    ``scales`` = ((G, anchor_mask), ...)."""
+    from yolo_tensorflow_tpu_torch.models import specs as S
+    return [(torch.randn((batch, g, g, len(mask) * (5 + num_classes)),
+                         generator=gen, device=dev).to(dtype), S.Detect(mask))
+            for g, mask in scales]
+
+
+def off_boundary(feat):
+    """A contiguous copy of a head scale that starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(feat.numel() + 1, dtype=feat.dtype, device=feat.device)
+    view = flat[1:].view(feat.shape)
+    view.copy_(feat)
+    require(view.data_ptr() % 16 != 0 and view.is_contiguous(),
+            "off_boundary(): the view is aligned")
+    return view
+
+
+def decode_check(label, dets, cfg):
+    """One decode_fused (exactly one launch) against decode_plain within
+    KERNEL_TOL, labels exact. Returns (max |err|, outputs)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    before = K.launches
+    got = K.decode_fused(dets, cfg)
+    count = K.launches - before
+    want = K.decode_plain(dets, cfg)
+    torch.cuda.synchronize()
+    require(count == 1, f"{label}: decode_fused launched {count} kernels, "
+            "expected one for all scales")
+    err = 0.0
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, **KERNEL_TOL, msg=lambda m: f"{label}"
+                                   f": kernel != plain: {m}")
+        err = max(err, (g - w).abs().max().item())
+    require(torch.equal(got[2], want[2]), f"{label}: labels differ")
+    return err, got
+
+
+def decode_kernel_phase(dev):
+    """Phase 3. Returns the kernel's JSON fields, timed at the yolov3-416
+    heads, batch SERVE_BATCH, bf16: the shape phase 5 serves."""
+    import dataclasses
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    v3 = ((13, (6, 7, 8)), (26, (3, 4, 5)), (52, (0, 1, 2)))
+    region = ((13, (0, 1, 2, 3, 4)),)
+    spin = 20_000_000        # ~10 ms: every launch is queued before the first
+    max_err, fields = 0.0, None
+    for name, scales in (("yolov3", v3), ("yolov2", region),
+                         ("yolov2-tiny-voc", region)):
+        cfg = C.get_config(name)
+        for batch, dtype in ((KERNEL_BATCH, torch.float32),
+                             (KERNEL_BATCH, torch.bfloat16),
+                             (SERVE_BATCH, torch.bfloat16)):
+            dets = decode_heads(gen, dev, batch, dtype, cfg.num_classes,
+                                scales)
+            label = f"decode {name} {str(dtype)[6:]} B={batch}"
+            err, got = decode_check(label, dets, cfg)
+            max_err = max(max_err, err)
+            kernel_ms = cuda_ms(lambda: K.decode_fused(dets, cfg),
+                                ahead_cycles=spin)
+            plain_ms = cuda_ms(lambda: K.decode_plain(dets, cfg))
+            host_ms = wall_ms(lambda: K.decode_fused(dets, cfg), 200)
+            in_bytes = sum(f.numel() * f.element_size() for f, _ in dets)
+            # outputs: boxes (4 f32), score (f32) and label (i32) per row
+            out_bytes = sum(g.numel() * g.element_size() for g in got)
+            # ~4 f32 operations per head value (sigmoid/exp, max, compares)
+            bnd, by = bound_ms(in_bytes + out_bytes,
+                               4 * in_bytes // dets[0][0].element_size(),
+                               F32_OPS_S)
+            plan = K.plan_tiles([f.numel() // (5 + cfg.num_classes)
+                                 for f, _ in dets], 5 + cfg.num_classes,
+                                dets[0][0].element_size())
+            print(f"[3 kernel] {label} N={got[1].shape[1]} "
+                  f"({'softmax' if cfg.head == 2 else 'sigmoid'} classes): "
+                  f"equal to plain within {KERNEL_TOL}, labels equal, max "
+                  f"|err| {err:.3g}; 1 launch of {plan.total_tiles} tiles x "
+                  f"{plan.tile_rows} rows, {plan.stages} stages; kernel "
+                  f"{kernel_ms:.4f} ms ({in_bytes / 1e6 / kernel_ms:.1f} GB/s "
+                  f"read), bound {bnd:.4f} ms ({by}), plain {plain_ms:.4f} "
+                  f"ms; {host_ms:.4f} ms a call on the host's clock in a "
+                  "loop of 200 calls")
+            if name == MODEL and batch == SERVE_BATCH:
+                fields = {"ms": kernel_ms, "plain_ms": plain_ms,
+                          "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            del dets, got
+
+    cases = 0
+    for classes, g, anchors, batch in DECODE_ODD:
+        names = tuple(f"c{i}" for i in range(classes))
+        cfgs = (dataclasses.replace(C.get_config("yolov3"),
+                                    custom_classes=names),
+                dataclasses.replace(
+                    C.get_config("yolov2"), custom_classes=names,
+                    anchors=C.V2_COCO_ANCHORS[:anchors]))
+        for cfg in cfgs:
+            for dtype in (torch.float32, torch.bfloat16):
+                dets = decode_heads(gen, dev, batch, dtype, classes,
+                                    ((g, tuple(range(anchors))),))
+                label = (f"odd decode head {cfg.head} C={classes} G={g} "
+                         f"A={anchors} B={batch} {str(dtype)[6:]}")
+                max_err = max(max_err, decode_check(label, dets, cfg)[0])
+                max_err = max(max_err, decode_check(
+                    label + " off a 16-byte boundary",
+                    [(off_boundary(dets[0][0]), dets[0][1])], cfg)[0])
+                cases += 2
+    # three scales in one launch, the middle one off a 16-byte boundary: the
+    # element-wise fill beside 16-byte copies, each scale's last tile ragged
+    cfg = dataclasses.replace(C.get_config("yolov3"),
+                              custom_classes=tuple(f"c{i}" for i in range(7)))
+    for dtype in (torch.float32, torch.bfloat16):
+        dets = decode_heads(gen, dev, 3, dtype, 7, DECODE_ODD_SCALES)
+        dets[1] = (off_boundary(dets[1][0]), dets[1][1])
+        max_err = max(max_err, decode_check(
+            f"odd decode, scales {DECODE_ODD_SCALES} C=7 B=3 "
+            f"{str(dtype)[6:]}, the middle one off a 16-byte boundary", dets,
+            cfg)[0])
+        cases += 1
+    print(f"[3 kernel] {cases} odd decode cases (classes, G, anchors, batch "
+          f"of {DECODE_ODD}; sigmoid and softmax, f32 and bf16, aligned and "
+          f"one element off; and three scales {DECODE_ODD_SCALES} with the "
+          f"middle one off): one launch each, equal to plain within "
+          f"{KERNEL_TOL}, labels equal; max |err| over phase 3 {max_err:.3g}")
+    return {"max_abs_err": max_err, **fields}
 
 
 def int8_shapes(specs, cfg, quantized):
@@ -467,9 +643,9 @@ def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
     got = gpu.detect_batch(imgs)               # f32 epilogue: parity mode
     torch.cuda.synchronize()
     launches, dec_launches = Q8.launches, K.launches
-    require(launches == n_int8 and dec_launches == 3,
+    require(launches == n_int8 and dec_launches == 1,
             f"int8 path launched the int8 conv {launches} times (expected "
-            f"{n_int8}) and the decode {dec_launches} times (expected 3)")
+            f"{n_int8}) and the decode {dec_launches} times (expected 1)")
     cpu = Detector(MODEL, params=qparams, device="cpu", conf_threshold=CONF)
     check_detections("7 int8 f32", gpu, imgs, NMS.fetch_detections(got),
                      NMS.fetch_detections(cpu.detect_batch(imgs)), cfg, kind)
@@ -821,6 +997,124 @@ def train_bf16_phase(cfg, specs, params, stats, dev, n_fused, smi):
     return launches
 
 
+def family_phases(name, numbers, dev, kind, smi):
+    """Phases 11-12 (yolov2) and 13 (yolov1): the f32 Detector at batch
+    PARITY_BATCH on the card against the CPU port, with the decode kernel's
+    launches counted around one forward, then bf16 serving at SERVE_BATCH
+    with its split and the device time of the layers this family adds.
+    ``numbers`` = (f32 phase label, bf16 phase label). Returns the decode
+    launches of the counted forward."""
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.io import weights as W
+    from yolo_tensorflow_tpu_torch.models import engine, heads
+    from yolo_tensorflow_tpu_torch.models import specs as S
+    from yolo_tensorflow_tpu_torch.ops import layers as L
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    f32, bf16 = numbers
+    size_bias, conf = REGION[name]
+    cfg = C.get_config(name)
+    specs = C.build_specs(cfg)
+    size = cfg.input_size
+    want_launches = 0 if cfg.head == 1 else 1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}-seed{SEED}.weights")
+        params, stats = engine.init_params(specs, size, SEED,
+                                           size_bias=size_bias)
+        W.save_darknet_weights(specs, size, params, stats, path)
+        mbytes = os.path.getsize(path) / 2 ** 20
+        del params, stats
+        rng = np.random.default_rng(SEED + 11)
+        imgs = rng.integers(0, 256, (PARITY_BATCH, size, size, 3),
+                            dtype=np.uint8)
+        torch.backends.cudnn.benchmark = False
+        gpu = Detector(name, path, device="cuda", conf_threshold=conf)
+        gpu.detect_batch(imgs)                 # warm-up, outside the count
+        torch.cuda.synchronize()
+        K.launches = 0
+        got = gpu.detect_batch(imgs)           # f32, TF32 off in the network
+        torch.cuda.synchronize()
+        launches = K.launches
+        require(launches == want_launches,
+                f"{name}: the decode kernel launched {launches} times in one "
+                f"forward, expected {want_launches}")
+        cpu = Detector(name, path, device="cpu", conf_threshold=conf)
+        t0 = time.perf_counter()
+        want = NMS.fetch_detections(cpu.detect_batch(imgs))
+        cpu_s = time.perf_counter() - t0
+        check_detections(f32, gpu, imgs, NMS.fetch_detections(got), want, cfg,
+                         kind, conf)
+        print(f"[{f32}] {name}-{size} from a seeded {mbytes:.0f} MiB "
+              f".weights file: decode kernel launches {launches} "
+              + ("(the grid head decodes in plain PyTorch)" if cfg.head == 1
+                 else "(softmax classes, one launch)")
+              + f"; the CPU port took {cpu_s:.1f} s")
+        del gpu, cpu
+
+        torch.backends.cudnn.benchmark = True
+        det = Detector(name, path, device="cuda",
+                       compute_dtype=torch.bfloat16, conf_threshold=conf)
+    x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, size, size, 3),
+                                     dtype=np.uint8), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, rates, out = serve_rate(det, x)
+    out = NMS.fetch_detections(out)
+    require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
+            f"{name} bf16 detections empty or not finite")
+    with torch.inference_mode():
+        xn = normalize_images(x, cfg, torch.bfloat16)
+        net_ms = cuda_ms(lambda: det.network(xn), iters=5)
+        feats = det.network(xn)
+        if cfg.head == 1:
+            def decode():
+                boxes, scores, labels = heads.decode_scored(feats, cfg)
+                return heads.xywh_to_xyxy(boxes), scores, labels
+            how = "plain PyTorch"
+        else:
+            def decode():
+                return K.decode_fused(feats, cfg)
+            how = "the kernel, host kept ahead"
+        dec_ms = cuda_ms(decode, iters=20, ahead_cycles=20_000_000)
+        boxes, scores, labels = decode()
+        nms_ms = statistics.median(
+            wall_ms(lambda: NMS.batched_nms_scored(
+                boxes, scores, labels, conf_threshold=conf,
+                iou_threshold=cfg.iou_threshold,
+                max_detections=cfg.max_detections), 5)
+            for _ in range(3))
+        # the layers this family adds, at the shapes the forward gives them
+        shapes = engine.infer_shapes(specs, (SERVE_BATCH, size, size, 3))
+        extra = []
+        for i, spec in enumerate(specs):
+            if isinstance(spec, S.Reorg):
+                b, h, w, c = shapes[i - 1]
+                t = torch.randn((b, c, h, w), device=dev).to(
+                    torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+                ms = cuda_ms(lambda: L.darknet_reorg(t, spec.stride))
+                extra.append(f"darknet_reorg {h}^2 x {c} -> "
+                             f"{shapes[i][1]}^2 x {shapes[i][3]}: {ms:.4f} ms")
+            elif isinstance(spec, S.Dense):
+                layer = det.network.dense[engine.layer_key(i)]
+                t = torch.randn((SERVE_BATCH, layer.w.shape[0]),
+                                device=dev).to(layer.w.dtype)
+                ms = cuda_ms(lambda: layer(t))
+                extra.append(f"dense {layer.w.shape[0]} -> "
+                             f"{layer.w.shape[1]} ({str(layer.w.dtype)[6:]} "
+                             f"weights): {ms:.4f} ms")
+    step = statistics.median(step_ms)
+    print(f"[{bf16}] {name} detect_batch B={SERVE_BATCH} at {size}, images "
+          f"on the card: {statistics.median(rates):.1f} img/s median of 3 x "
+          f"5 steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
+          f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode {dec_ms:.4f} ms "
+          f"({how}), NMS {nms_ms:.2f} ms = {100 * nms_ms / step:.1f}% of "
+          f"the step; {'; '.join(extra)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean num "
+          f"{out.num.mean():.1f}; on {smi}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -855,47 +1149,10 @@ def main():
     print(f"[2 build] nvcc built {[s.name for s in build.sources()]} -> "
           f"{lib_path.name} in {build_s:.2f} s")
 
-    # 3. kernel vs plain at the yolov3-416 head shapes
+    # 3. decode kernel vs plain at the v3 and region head shapes
     cfg = C.get_config(MODEL)
     specs = C.build_specs(cfg)
-    shapes = engine.infer_shapes(specs, (1, cfg.input_size, cfg.input_size,
-                                         3))
-    head_specs = [(shapes[i][1:], sp) for i, sp in enumerate(specs)
-                  if isinstance(sp, S.Detect)]
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def heads_on_card(batch, dtype):
-        return [(torch.randn((batch, *shp), generator=gen, device=dev)
-                 .to(dtype), sp) for shp, sp in head_specs]
-
-    max_err = 0.0
-    for batch, dtype in ((KERNEL_BATCH, torch.float32),
-                         (KERNEL_BATCH, torch.bfloat16),
-                         (SERVE_BATCH, torch.bfloat16)):
-        dets = heads_on_card(batch, dtype)
-        got, want = K.decode_fused(dets, cfg), K.decode_plain(dets, cfg)
-        torch.cuda.synchronize()
-        err = 0.0
-        for g, w in zip(got[:2], want[:2]):
-            torch.testing.assert_close(g, w, **KERNEL_TOL)
-            err = max(err, (g - w).abs().max().item())
-        require(torch.equal(got[2], want[2]), f"{dtype} labels differ")
-        max_err = max(max_err, err)
-        kernel_ms = cuda_ms(lambda: K.decode_fused(dets, cfg))
-        plain_ms = cuda_ms(lambda: K.decode_plain(dets, cfg))
-        in_bytes = sum(f.numel() * f.element_size() for f, _ in dets)
-        # outputs: boxes (4 f32), score (f32) and label (i32) per row
-        out_bytes = sum(g.numel() * g.element_size() for g in got)
-        # ~4 f32 operations per head value (sigmoid/exp, max, compares)
-        dec_bound, dec_by = bound_ms(in_bytes + out_bytes,
-                                     4 * in_bytes // dets[0][0].element_size(),
-                                     F32_OPS_S)
-        print(f"[3 kernel] decode {str(dtype)[6:]} B={batch} "
-              f"N={got[1].shape[1]}: equal to plain within {KERNEL_TOL}, "
-              f"labels equal, max |err| {err:.3g}; kernel {kernel_ms:.4f} ms "
-              f"({in_bytes / 1e6 / kernel_ms:.1f} GB/s read), bound "
-              f"{dec_bound:.4f} ms ({dec_by}), plain {plain_ms:.4f} ms")
-    del dets, got, want     # the JSON line keeps the last, serving-shape times
+    decode_fields = decode_kernel_phase(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         # 4. main path, f32 parity
@@ -914,9 +1171,9 @@ def main():
         got = gpu.detect_batch(imgs)           # f32, TF32 off in the network
         torch.cuda.synchronize()
         launches = K.launches
-        require(launches == len(head_specs),
+        require(launches == 1,
                 f"decode kernel launched {launches} times in the main path, "
-                f"expected one per head scale ({len(head_specs)})")
+                "expected one launch for the three head scales")
         cpu = Detector(MODEL, path, device="cpu", conf_threshold=CONF)
         check_detections("4 f32", gpu, imgs, NMS.fetch_detections(got),
                          NMS.fetch_detections(cpu.detect_batch(imgs)), cfg,
@@ -940,7 +1197,8 @@ def main():
             xn = normalize_images(x, cfg, torch.bfloat16)
             net_ms = cuda_ms(lambda: det.network(xn), iters=5)
             feats = det.network(xn)
-            dec_ms = cuda_ms(lambda: K.decode_fused(feats, cfg), iters=5)
+            dec_ms = cuda_ms(lambda: K.decode_fused(feats, cfg),
+                             ahead_cycles=20_000_000)
             boxes, scores, labels = K.decode_fused(feats, cfg)
             nms_ms = statistics.median(
                 wall_ms(lambda: NMS.batched_nms_scored(
@@ -954,7 +1212,7 @@ def main():
               f"images on the card: {float_rate:.1f} img/s median of 3 x 5 "
               f"steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
               f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode "
-              f"{dec_ms:.3f} ms, NMS {nms_ms:.2f} ms = "
+              f"{dec_ms:.4f} ms, NMS {nms_ms:.2f} ms = "
               f"{100 * nms_ms / step:.1f}% of the step; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"mean num {out.num.mean():.1f}; on {smi}")
@@ -985,13 +1243,21 @@ def main():
     bnstat_launches = train_bf16_phase(cfg, specs, params, stats, dev,
                                        n_fused, smi)
 
+    del params, stats
+
+    # 11-12. yolov2-416: the region head on its real path; 13. yolov1-448
+    v2_launches = family_phases("yolov2", ("11 yolov2 f32", "12 yolov2 bf16"),
+                                dev, kind, smi)
+    family_phases("yolov1", ("13 yolov1 f32", "13 yolov1 bf16"), dev, kind,
+                  smi)
+    require(launches == v2_launches == 1, "decode launches per forward: "
+            f"yolov3 {launches}, yolov2 {v2_launches}, expected 1 each")
+
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/decode.cu",
         "replaces": "yolo_tensorflow_tpu/ops/pallas/decode.py:82",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": dec_bound,
-        "bound_by": dec_by, "library_ms": None}, {
+        "launches": launches, **decode_fields}, {
         "name": "conv2d_int8", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/conv_int8.cu",
         "replaces": "tools/probe_int8_3x3.py:35",

@@ -1,8 +1,10 @@
 """Port decode (ops/kernels/decode.py, models/heads.py) vs the JAX package's
 Pallas kernel in interpret mode and its XLA decode, mirroring
 tests/test_pallas_decode.py: rtol 1e-5 / atol 1e-6 (float32 transcendental
-rounding), labels equal. On CPU tensors the wrappers run the plain version
-and the kernel launch counter stays 0."""
+rounding), labels equal; the v1 grid head (no kernel in either package)
+against heads.decode_v1 and decode_scored at the same tolerance. On CPU
+tensors the wrappers run the plain version and the kernel launch counter
+stays 0."""
 
 import numpy as np
 import pytest
@@ -103,6 +105,79 @@ def test_all_scales_match_decode_scored(rng):
 
 
 def test_v1_head_raises():
+    """The fused decode covers the v2 and v3 heads, in the TPU package too;
+    the v1 head decodes through heads.decode_scored."""
     cfg = C.get_config("yolov1")
-    with pytest.raises(NotImplementedError, match="yolov2/yolov1"):
-        K.decode_fused([(torch.zeros(1, 1470), S.Detect(()))], cfg)
+    dets = [(torch.zeros(1, 1470), S.Detect(()))]
+    with pytest.raises(NotImplementedError, match="v2/v3 heads"):
+        K.decode_fused(dets, cfg)
+    with pytest.raises(NotImplementedError, match="v2/v3"):
+        jax_decode_fused([(jnp.zeros((1, 1470)), JS.Detect(()))],
+                         JC.get_config("yolov1"), interpret=True)
+    assert TH.decode_scored(dets, cfg)[0].shape == (1, 98, 4)
+
+
+V1_CASES = [dict(), dict(grid=3, boxes_per_cell=2, custom_classes=tuple("abcd")),
+            dict(grid=5, boxes_per_cell=3, custom_classes=tuple("abcdefg"))]
+
+
+def _v1_case(overrides, rng, batch=3):
+    cfg = C.get_config("yolov1", **overrides)
+    jcfg = JC.get_config("yolov1", **overrides)
+    n = cfg.grid ** 2 * (cfg.num_classes + 5 * cfg.boxes_per_cell)
+    return cfg, jcfg, rng.standard_normal((batch, n), dtype=np.float32)
+
+
+@pytest.mark.parametrize("overrides", V1_CASES)
+def test_decode_v1_matches_jax(overrides, rng):
+    cfg, jcfg, pred = _v1_case(overrides, rng)
+    want = JH.decode_v1(jnp.asarray(pred), jcfg)
+    got = TH.decode_v1(torch.from_numpy(pred), cfg)
+    n = cfg.grid ** 2 * cfg.boxes_per_cell
+    assert got[0].shape == (3, n, 4) and got[2].shape == (3, n,
+                                                          cfg.num_classes)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("overrides", V1_CASES)
+def test_v1_decode_scored_matches_jax(overrides, dtype, rng):
+    """score = conf * the largest raw class value, label its index; a bf16
+    head widens to float32 first in both packages."""
+    cfg, jcfg, pred = _v1_case(overrides, rng)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = JH.decode_scored([(jnp.asarray(pred).astype(jdt), JS.Detect(()))],
+                            jcfg)
+    got = TH.decode_scored([(torch.from_numpy(pred).to(tdt), S.Detect(()))],
+                           cfg)
+    assert got[2].dtype == torch.int32
+    _check(got, want)
+    # and against the materialized form: conf * probs, max and argmax
+    bx, conf, probs = TH.decode_v1(torch.from_numpy(pred).to(tdt), cfg)
+    scores = conf[..., None] * probs
+    np.testing.assert_array_equal(got[0].numpy(), bx.numpy())
+    np.testing.assert_array_equal(got[2].numpy(), probs.argmax(-1).numpy())
+    np.testing.assert_allclose(
+        got[1].numpy(), torch.gather(
+            scores, 2, got[2].long()[..., None])[..., 0].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("name", ["yolov2", "yolov2-tiny-voc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_region_head_matches_pallas_interpret(name, dtype, rng):
+    """The softmax branch at the two region heads the port serves, f32 and
+    bf16 inputs (both widen to float32 before any arithmetic)."""
+    cfg, jcfg = C.get_config(name), JC.get_config(name)
+    A, Cn = cfg.num_anchors, cfg.num_classes
+    feat = rng.standard_normal((2, 13, 13, A * (5 + Cn)), dtype=np.float32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+    mask = tuple(range(A))
+    want = jax_decode_fused([(jnp.asarray(feat).astype(jdt),
+                              JS.Detect(mask))], jcfg, interpret=True)
+    got = K.decode_fused([(torch.from_numpy(feat).to(tdt), S.Detect(mask))],
+                         cfg)
+    assert got[0].shape == (2, 845, 4)
+    _check(got, want)

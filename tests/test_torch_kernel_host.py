@@ -1,8 +1,9 @@
-"""What surrounds the port's conv kernels on the host, on the CPU: the int8
+"""What surrounds the port's kernels on the host, on the CPU: the int8
 conv's quantize prologue against the JAX package's, the plain int8 conv as
-the sum of its parts, which kernel instance and tile each conv takes, and
-the build's bookkeeping. The CUDA kernels themselves are held to their plain
-versions on the card by chip_smoke.py (phases 6 and 8).
+the sum of its parts, which kernel instance and tile each conv takes, the
+decode kernel's tile plan and launch arguments, and the build's bookkeeping.
+The CUDA kernels themselves are held to their plain versions on the card by
+chip_smoke.py (phases 3, 6 and 8).
 
 - ``quantize_act_plain`` equals, bit for bit, the int8 tensor that
   yolo_tensorflow_tpu/ops/quant.conv2d_int8 hands to its conv (captured at
@@ -12,6 +13,9 @@ versions on the card by chip_smoke.py (phases 6 and 8).
   ``int8_accumulate(quantize_act_plain(x))``, exactly.
 - ``igemm.pick_instance`` / ``pick_bn`` over every conv of yolov3-416, and
   the odd cases that must take the element-by-element instance.
+- ``decode.plan_tiles`` over the heads the port serves and odd ones: tile
+  counts, first-tile indices, 16-byte alignment of every tile, the shared-
+  memory budget; the limits the wrapper copies from ``csrc/decode.cu``.
 - ``build.library_path()`` changes when a ``.cuh`` header changes, and each
   ctypes signature has as many arguments as its ``extern "C"`` definition.
 """
@@ -32,6 +36,7 @@ from yolo_tensorflow_tpu_torch.models import specs as TS
 from yolo_tensorflow_tpu_torch.ops.kernels import build
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as K
+from yolo_tensorflow_tpu_torch.ops.kernels import decode as DK
 from yolo_tensorflow_tpu_torch.ops.kernels import igemm
 
 from torch_parity import model
@@ -250,3 +255,108 @@ def test_ctypes_signature_matches_the_c_definition(name):
             assert ctype is build.ctypes.c_longlong
         else:
             assert param.startswith("int ") and ctype is build.INT
+
+
+# ------------------------------------------------------- the decode kernel
+
+def test_decode_limits_match_the_source():
+    """The wrapper's copies of csrc/decode.cu's limits."""
+    text = (build.CSRC_DIR / "decode.cu").read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+        return eval(expr, {"__builtins__": {}})
+
+    assert DK.MAX_SCALES == const("kMaxScales")
+    assert DK.MAX_ANCHORS == const("kMaxAnchors")
+    assert DK.MAX_TILE_ROWS == const("kMaxThreads")
+    assert DK.MAX_STAGES == const("kMaxStages")
+    assert DK.MAX_SHARED_BYTES == const("kMaxSharedBytes")
+    assert DK.TILE_ROWS <= DK.MAX_TILE_ROWS and DK.STAGES <= DK.MAX_STAGES
+
+
+# rows per scale: yolov3-416 at batch 64, a region head at batch 8, ragged
+# scales (rows not a multiple of any tile), one row, an empty scale
+TILE_ROWS_CASES = [(32448, 129792, 519168), (6760,), (507, 2028, 8112),
+                   (1,), (0, 45), (130, 1, 129, 127)]
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("classes", [1, 7, 20, 80, 1000])
+@pytest.mark.parametrize("rows", TILE_ROWS_CASES)
+def test_decode_tile_plan(rows, classes, elem_bytes):
+    """Tile count per scale, first-tile indices, the shared-memory budget,
+    and that every full tile spans whole 16-byte chunks from its scale's
+    base, so that an aligned base makes every tile's copy aligned."""
+    row_elems = 5 + classes
+    plan = DK.plan_tiles(rows, row_elems, elem_bytes)
+    r = plan.tile_rows
+    assert r % 8 == 0 and 8 <= r <= DK.MAX_TILE_ROWS
+    assert 2 <= plan.stages <= DK.MAX_STAGES
+    assert plan.shared_bytes == plan.stages * r * row_elems * elem_bytes
+    assert plan.shared_bytes <= DK.MAX_SHARED_BYTES
+    tiles = [-(-n // r) for n in rows]
+    assert plan.total_tiles == sum(tiles)
+    assert plan.first_tile == tuple(sum(tiles[:k]) for k in range(len(rows)))
+    assert (r * row_elems * elem_bytes) % 16 == 0        # a tile, a stage
+    for n, first, count in zip(rows, plan.first_tile, tiles):
+        for local in {0, 1, count // 2, count - 1} & set(range(count)):
+            assert (local * r * row_elems * elem_bytes) % 16 == 0
+            valid = min(r, n - local * r)
+            assert 0 < valid <= r and (valid == r or local == count - 1)
+    # every tile index maps back to exactly one scale, as the kernel maps it
+    firsts = list(plan.first_tile) + [2 ** 31 - 1] * (4 - len(rows))
+    for tile in {0, plan.total_tiles - 1} & set(range(plan.total_tiles)):
+        s = sum(tile >= f for f in firsts[1:])
+        assert 0 <= tile - plan.first_tile[s] < tiles[s]
+
+
+def test_decode_tile_plan_follows_the_row_width():
+    """COCO rows: three stages of 128 rows in bf16, two in f32 (three would
+    leave no room for two CTAs an SM); 1000 classes in f32: fewer rows."""
+    assert DK.plan_tiles([1024], 85, 2)[:3] == (128, 3, 3 * 128 * 170)
+    assert DK.plan_tiles([1024], 85, 4)[:3] == (128, 2, 2 * 128 * 340)
+    assert DK.plan_tiles([1024], 25, 4)[:2] == (128, 3)
+    wide = DK.plan_tiles([1024], 1005, 4)
+    assert wide.tile_rows < 128 and wide.stages == 2
+    with pytest.raises(ValueError, match="no tile plan"):
+        DK.plan_tiles([8], 20005, 4)
+
+
+def test_decode_launch_arguments_follow_the_scales():
+    """The host arrays handed to the kernel for the yolov3-416 heads at
+    batch 2: six ints a scale (rows, rows an image, G, A, first output row,
+    first tile) and the anchors in grid cells."""
+    anchors = ((116, 90), (156, 198), (373, 326))
+    geometry = ((13, anchors), (26, ((30, 61), (62, 45), (59, 119))),
+                (52, ((10, 13), (16, 30), (33, 23))))
+    table, wh, plan = DK._launch_args(2, geometry, 416, 80, 2, 10647)
+    assert plan.first_tile == (0, 8, 40)
+    assert list(table) == [1014, 507, 13, 3, 0, 0,
+                           4056, 2028, 26, 3, 507, 8,
+                           16224, 8112, 52, 3, 2535, 40]
+    np.testing.assert_allclose(list(wh)[:6], [116 / 32, 90 / 32, 156 / 32,
+                                              198 / 32, 373 / 32, 326 / 32])
+    assert len(wh) == 18
+    with pytest.raises(ValueError, match="10647 rows an image"):
+        DK._launch_args(2, geometry, 416, 80, 2, 10646)
+
+
+def test_decode_wrapper_rejects_what_the_kernel_does_not_take():
+    """Checked on the host before any launch, so also without a card."""
+    out = DK._outputs(torch.zeros(1), 1, 27)
+    anchors = [(10, 13), (16, 30), (33, 23)]
+
+    def launch(feat, n_anchors=3):
+        return DK._launch([(feat, anchors[:n_anchors], False)], 96, 4, *out)
+
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch(torch.zeros((1, 3, 3, 27), dtype=torch.float16))
+    with pytest.raises(ValueError, match="not .1, G, G"):
+        launch(torch.zeros((1, 3, 4, 27)))
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(torch.zeros((1, 27, 3, 3)).permute(0, 2, 3, 1))
+    with pytest.raises(ValueError, match="anchors for 3"):
+        launch(torch.zeros((1, 3, 3, 27)), n_anchors=2)
+    with pytest.raises(ValueError, match="scales in one"):
+        DK._launch([], 96, 4, *out)

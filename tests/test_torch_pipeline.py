@@ -2,7 +2,10 @@
 JAX package's Detector.detect_batch, on the same seeded weights and images:
 num and classes equal, boxes and scores at rtol 1e-4 / atol 1e-5 (float32
 conv sums in different orders). The JAX side runs its default XLA decode,
-which tests/test_pallas_decode.py pins to its Pallas kernel.
+which tests/test_pallas_decode.py pins to its Pallas kernel. The region (v2:
+Reorg, softmax classes) and grid (v1: connected head, symmetric
+normalization, heads.decode_scored in place of the fused decode) families
+run narrow specs of their own through the same comparison.
 
 Int8 (w8a8) Detectors get the JAX package's quantized params through
 ``params_from_jax``: at f32 the same tolerances hold. At bf16 every conv is
@@ -34,7 +37,8 @@ SIZE = 64
 OPTS = dict(conf_threshold=0.3, num_candidates=64)
 
 
-@pytest.fixture(scope="module", params=["narrow", "yolov3-tiny"])
+@pytest.fixture(scope="module", params=["narrow", "yolov3-tiny", "narrow-v2",
+                                        "narrow-v1"])
 def case(request, tmp_path_factory):
     """(port cfg, port specs, weights path, JAX params, images, JAX
     Detections by class_aware_nms)."""

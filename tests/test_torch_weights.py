@@ -1,6 +1,7 @@
 """Port .weights reader/writer (yolo_tensorflow_tpu_torch/io/weights.py) vs
 the JAX package's io/weights.py: the files are byte-identical and the folded
-parameters equal exactly (same float32 operations on the same values)."""
+parameters equal exactly (same float32 operations on the same values), for
+convolutional and connected layers."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ from torch_parity import jax_model, model, to_jax, write_weights
 SIZE = 64
 
 
-@pytest.fixture(params=["narrow", "yolov3-tiny"])
+@pytest.fixture(params=["narrow", "yolov3-tiny", "narrow-v2", "narrow-v1"])
 def written(request, tmp_path):
     """(port specs, JAX specs, port-written path, unfolded port params,
     stats)."""
@@ -84,9 +85,61 @@ def test_header_version_rule_matches_jax(major, minor):
 
 
 def test_unported_weights_raise():
-    _, specs = model("yolov2", 416)        # holds a Reorg
+    from yolo_tensorflow_tpu_torch.models import specs as S
+    specs = (S.Conv(4, 3), S.Local(4, 3))          # the long tail
     with pytest.raises(NotImplementedError):
-        TW.load_darknet_weights(specs, 416, bytes(20))
+        TW.load_darknet_weights(specs, 16, bytes(20))
+    with pytest.raises(NotImplementedError):
+        TW.save_darknet_weights(specs, 16, {}, {}, "unused.weights")
+
+
+def test_connected_weights_are_in_out_in_both_packages(tmp_path):
+    """darknet stores connected weights (Out, In); both packages hold (In,
+    Out). params_from_jax leaves a 2-D w as it is, and the reader
+    transposes the file's rows."""
+    _, specs = model("narrow-v1", SIZE)
+    _, jspecs = jax_model("narrow-v1", SIZE)
+    path = tmp_path / "v1.weights"
+    params, _ = write_weights(specs, SIZE, path)
+    assert params["L006"]["w"].shape == (128, 32)          # (In, Out)
+    got, _ = TW.load_darknet_weights(specs, SIZE, str(path))
+    want, _, _ = JW.load_darknet_weights(jspecs, SIZE, str(path))
+    for key in ("L006", "L007", "L009"):
+        assert got[key]["w"].shape == np.asarray(want[key]["w"]).shape
+        np.testing.assert_array_equal(got[key]["w"], params[key]["w"])
+        np.testing.assert_array_equal(got[key]["w"], want[key]["w"])
+    carried = TW.params_from_jax(want)
+    np.testing.assert_array_equal(carried["L006"]["w"], want["L006"]["w"])
+    assert carried["L000"]["w"].shape == (8, 3, 7, 7)       # conv: OIHW
+    with pytest.raises(NotImplementedError, match="long tail"):
+        TW.params_from_jax({"L000": {"w": np.zeros((2, 3, 4))}})
+
+
+def test_connected_bn_folds_as_jax(tmp_path):
+    """A connected layer with batch norm: biases are the BN's beta, the
+    scales, mean and variance follow the weights, and the fold is darknet's
+    formula, as in the JAX package's reader."""
+    from yolo_tensorflow_tpu.models import specs as JS
+    from yolo_tensorflow_tpu_torch.models import specs as S
+    mk = lambda M: (M.Conv(4, 3, stride=2), M.TransposeFlatten(),
+                    M.Dense(6, bn=True), M.Dense(3, act="linear"))
+    rng = np.random.default_rng(5)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    pos = lambda n: rng.uniform(0.5, 1.5, n).astype(np.float32)
+    params = {"L000": {"w": f(4, 3, 3, 3), "gamma": pos(4), "beta": f(4)},
+              "L002": {"w": f(64, 6), "gamma": pos(6), "beta": f(6)},
+              "L003": {"w": f(6, 3), "b": f(3)}}
+    stats = {"L000": {"mean": f(4), "var": pos(4)},
+             "L002": {"mean": f(6), "var": pos(6)}}
+    path, jpath = tmp_path / "fc.weights", tmp_path / "jfc.weights"
+    TW.save_darknet_weights(mk(S), 8, params, stats, path)
+    JW.save_darknet_weights(mk(JS), 8, to_jax(params), stats, jpath)
+    assert path.read_bytes() == jpath.read_bytes()
+    got, _ = TW.load_darknet_weights(mk(S), 8, str(path))
+    want, _, _ = JW.load_darknet_weights(mk(JS), 8, str(path))
+    for key in ("L002", "L003"):
+        for name in ("w", "b"):
+            np.testing.assert_array_equal(got[key][name], want[key][name])
 
 
 def test_init_params_seeded():

@@ -2,8 +2,8 @@
 
 Parameters are drawn with numpy (``engine.init_params`` of the port) and
 handed to both packages: the port takes them in its OIHW layout, the JAX
-package in HWIO. A small hand-built v3-style spec covers every layer type
-the port runs.
+package in HWIO. Three small hand-built specs (v3-, v2- and v1-style) cover
+every layer type the port runs.
 
 Each package gets configs and specs built from its own classes: the port
 dispatches with ``isinstance`` on its copies (``models/specs.py``), which a
@@ -55,6 +55,51 @@ def narrow_spec(S=TS):
     )
 
 
+def narrow_v2_spec(S=TS, reorg_mode="darknet"):
+    """yolov2-style net at 4-32 channels: a passthrough Route, a 1x1 conv
+    down to 4 channels (so the reorg's C/s^2 is 1), Reorg, the [reorg,
+    main] concat and a 5-anchor region head over 4 classes."""
+    return (
+        S.Conv(8, 3),                                  # 0  64x64x8
+        S.MaxPool(2, 2),                               # 1  32x32
+        S.Conv(16, 3),                                 # 2
+        S.MaxPool(2, 2),                               # 3  16x16x16
+        S.Conv(16, 3),                                 # 4  passthrough
+        S.MaxPool(2, 2),                               # 5  8x8
+        S.Conv(32, 3),                                 # 6  main
+        S.Route((4,)),                                 # 7  16x16x16
+        S.Conv(4, 1),                                  # 8  16x16x4
+        S.Reorg(2, reorg_mode),                        # 9  8x8x16
+        S.Route((9, 6)),                               # 10 8x8x48
+        S.Conv(16, 3),                                 # 11
+        S.Conv(5 * (5 + len(NARROW_CLASSES)), 1, bn=False, act="linear"),
+        S.Detect((0, 1, 2, 3, 4)),                     # 13 8x8
+    )
+
+
+V1_GRID, V1_BOXES = 3, 2
+
+
+def narrow_v1_spec(S=TS):
+    """yolov1-style net: bias-only and BN convs (one 7x7 stride 2), then
+    TransposeFlatten, three connected layers with a Dropout between them
+    and the flat grid head (3x3 cells, 2 boxes, 4 classes)."""
+    n_out = V1_GRID * V1_GRID * (len(NARROW_CLASSES) + 5 * V1_BOXES)
+    return (
+        S.Conv(8, 7, stride=2, bn=False),              # 0  32x32x8
+        S.MaxPool(2, 2),                               # 1  16x16
+        S.Conv(16, 3, bn=False),                       # 2
+        S.MaxPool(2, 2),                               # 3  8x8x16
+        S.Conv(8, 3, stride=2),                        # 4  4x4x8
+        S.TransposeFlatten(),                          # 5  128
+        S.Dense(32),                                   # 6
+        S.Dense(48),                                   # 7
+        S.Dropout(0.5),                                # 8
+        S.Dense(n_out, act="linear"),                  # 9
+        S.Detect(()),                                  # 10
+    )
+
+
 def narrow_config(input_size=64, C=TC):
     """The narrow spec's config, of the ``C`` config module's class."""
     return C.ModelConfig(
@@ -66,6 +111,19 @@ def narrow_config(input_size=64, C=TC):
 def _model(C, S, name, input_size):
     if name == "narrow":
         return narrow_config(input_size, C), narrow_spec(S)
+    if name in ("narrow-v2", "narrow-v2-s2d"):
+        mode = "darknet" if name == "narrow-v2" else "space_to_depth"
+        return (C.ModelConfig(
+            name=name, dataset="custom", head=2, input_size=input_size,
+            anchors=C.V2_TINY_VOC_ANCHORS, anchor_units="grid",
+            custom_classes=NARROW_CLASSES), narrow_v2_spec(S, mode))
+    if name == "narrow-v1":
+        return (C.ModelConfig(
+            name=name, dataset="custom", head=1, input_size=input_size,
+            normalization="symmetric", grid=V1_GRID,
+            boxes_per_cell=V1_BOXES, conf_threshold=0.2, iou_threshold=0.4,
+            max_detections=10, custom_classes=NARROW_CLASSES),
+            narrow_v1_spec(S))
     cfg = C.get_config(name, input_size=input_size)
     return cfg, C.build_specs(cfg)
 
@@ -81,8 +139,10 @@ def jax_model(name, input_size):
 
 
 def _transpose(p, key, axes):
+    """Conv kernels only: a connected layer's 2-D ``w`` is (In, Out) in
+    both packages."""
     return ({**p, key: np.ascontiguousarray(np.asarray(p[key]).transpose(
-        axes))} if key in p else p)
+        axes))} if key in p and np.asarray(p[key]).ndim == 4 else p)
 
 
 def to_jax(params):

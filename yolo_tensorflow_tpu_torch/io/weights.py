@@ -1,16 +1,21 @@
 """Darknet ``.weights`` byte stream <-> the port's folded parameters.
 
-Counterpart of yolo_tensorflow_tpu/io/weights.py for the conv path, which is
-all the v3 family holds. That module cannot be imported here: it pulls in
-the TPU package's engine, which imports jax. The file format is the same
-(src/parser.c:1241-1290):
+Counterpart of yolo_tensorflow_tpu/io/weights.py for convolutional and
+connected layers, which is all the v1, v2 and v3 detectors hold. That module
+cannot be imported here: it pulls in the TPU package's engine, which imports
+jax. The file format is the same (src/parser.c:1241-1290):
   header: int32 major, minor, revision, then ``seen`` (int32 before
           major*10+minor >= 2, int64 from then on), then raw float32s;
   per conv+BN layer: biases(beta)[n] scales(gamma)[n] mean[n] var[n]
                      weights[(out, in, kh, kw) row-major];
-  per bias-only conv: biases[n] weights[...].
-The port keeps darknet's OIHW kernel order, so no transpose happens at load.
-BN folds into the conv at load with darknet's formula.
+  per bias-only conv: biases[n] weights[...];
+  per connected layer: biases[out] weights[(out, in) row-major], then with
+                     batch norm scales[out] mean[out] var[out].
+The port keeps darknet's OIHW kernel order, so no transpose happens at load
+for convs; connected weights are held (In, Out), the TPU package's layout,
+and transposed from and to the file's (Out, In). A layer that holds no
+weights (TransposeFlatten among them) takes no section of the file. BN folds
+into its layer at load with darknet's formula.
 """
 
 from __future__ import annotations
@@ -84,11 +89,28 @@ def _read_conv_sub(buf, ptr, cin, cout, k, bn):
     return {"w": np.array(w, np.float32), "b": bias.copy()}, ptr
 
 
+def _read_fc(buf, ptr, fan_in, units, bn):
+    """One connected layer (load_connected_weights order), folded: w comes
+    back (In, Out)."""
+    bias, ptr = _take(buf, ptr, units)
+    flat, ptr = _take(buf, ptr, units * fan_in)
+    w = np.ascontiguousarray(flat.reshape(units, fan_in).T, np.float32)
+    if not bn:
+        return {"w": w, "b": bias.copy()}, ptr
+    gamma, ptr = _take(buf, ptr, units)
+    mean, ptr = _take(buf, ptr, units)
+    var, ptr = _take(buf, ptr, units)
+    inv = gamma / (np.sqrt(var) + 1e-6)      # biases are the BN's beta
+    return {"w": (w * inv[None, :]).astype(np.float32),
+            "b": (bias - mean * inv).astype(np.float32)}, ptr
+
+
 def load_darknet_weights(specs, input_size: int, path_or_bytes, *,
                          in_channels: int = 3):
     """Parse a .weights stream against ``specs`` -> (params, header), params
-    folded: {layer_key(i): {"w": OIHW f32, "b": f32}} per conv. Specs the
-    port cannot run raise NotImplementedError."""
+    folded: {layer_key(i): {"w": OIHW f32, "b": f32}} per conv and {"w":
+    (In, Out) f32, "b": f32} per connected layer. Specs the port cannot run
+    raise NotImplementedError."""
     if isinstance(path_or_bytes, (bytes, bytearray)):
         fp = _io.BytesIO(path_or_bytes)
     else:
@@ -100,12 +122,15 @@ def load_darknet_weights(specs, input_size: int, path_or_bytes, *,
     shapes = infer_shapes(specs, (1, input_size, input_size, in_channels))
     params: Dict[str, Dict[str, np.ndarray]] = {}
     ptr = 0
-    prev_c = in_channels
+    prev = (1, input_size, input_size, in_channels)
     for i, spec in enumerate(specs):
         if isinstance(spec, S.Conv):
             params[layer_key(i)], ptr = _read_conv_sub(
-                buf, ptr, prev_c, spec.filters, spec.size, spec.bn)
-        prev_c = shapes[i][3]
+                buf, ptr, prev[3], spec.filters, spec.size, spec.bn)
+        elif isinstance(spec, S.Dense):
+            params[layer_key(i)], ptr = _read_fc(buf, ptr, prev[1],
+                                                 spec.units, spec.bn)
+        prev = shapes[i]
     if ptr != buf.size:
         raise WeightsFormatError(
             f"weights file has {buf.size - ptr} unconsumed floats "
@@ -115,23 +140,32 @@ def load_darknet_weights(specs, input_size: int, path_or_bytes, *,
 
 def save_darknet_weights(specs, input_size: int, params, batch_stats, path,
                          *, seen: int = 0):
-    """Write unfolded darknet-form params (``engine.init_params``' form,
-    OIHW) to a .weights file, byte for byte what the TPU package's writer
-    makes of the same values in its HWIO layout."""
+    """Write unfolded darknet-form params (``engine.init_params``' form:
+    convs OIHW, connected layers (In, Out)) to a .weights file, byte for
+    byte what the TPU package's writer makes of the same values in its
+    layout."""
     for i, spec in enumerate(specs):
-        check_supported(spec, i)       # convs are the only weighted type
+        check_supported(spec, i)       # no other weighted type gets past
     with open(path, "wb") as fp:
         write_header(fp, seen=seen)
         for i, spec in enumerate(specs):
-            if not isinstance(spec, S.Conv):
+            if not isinstance(spec, (S.Conv, S.Dense)):
                 continue
             key = layer_key(i)
             p = {k: np.asarray(v, np.float32) for k, v in params[key].items()}
+            if spec.bn and "gamma" not in p:
+                raise ValueError(
+                    f"{key}: cannot serialize folded BN back to .weights")
+            st = batch_stats[key] if spec.bn else None
+            if isinstance(spec, S.Dense):
+                # connected order: bias, weights (Out, In), then the BN
+                fp.write((p["beta"] if spec.bn else p["b"]).tobytes())
+                fp.write(p["w"].T.tobytes())
+                if spec.bn:
+                    for arr in (p["gamma"], st["mean"], st["var"]):
+                        fp.write(np.asarray(arr, np.float32).tobytes())
+                continue
             if spec.bn:
-                if "gamma" not in p:
-                    raise ValueError(
-                        f"{key}: cannot serialize folded BN back to .weights")
-                st = batch_stats[key]
                 for arr in (p["beta"], p["gamma"], st["mean"], st["var"]):
                     fp.write(np.asarray(arr, np.float32).tobytes())
             else:
@@ -140,17 +174,22 @@ def save_darknet_weights(specs, input_size: int, params, batch_stats, path,
 
 
 def params_from_jax(np_params):
-    """TPU-package parameters (numpy, conv kernels HWIO) -> the port's layout
-    (OIHW): float ``w`` and int8 ``w_q`` alike; other arrays (``b``,
-    ``s_w``, ``s_x``) pass through. Conv layers only."""
+    """TPU-package parameters (numpy) -> the port's layout. Conv kernels go
+    from HWIO to OIHW, float ``w`` and int8 ``w_q`` alike. A connected
+    layer's 2-D ``w`` stays (In, Out): that is the port's layout too
+    (``ops.layers.dense``), not ``nn.Linear``'s (Out, In). Other arrays
+    (``b``, ``s_w``, ``s_x``) pass through."""
     out = {}
     for key, p in np_params.items():
         p = {k: np.asarray(v) for k, v in p.items()}
         name = "w_q" if "w_q" in p else "w"
+        if p[name].ndim == 2:
+            out[key] = {**p, name: np.ascontiguousarray(p[name])}
+            continue
         if p[name].ndim != 4:
             raise NotImplementedError(
-                f"{key}: only conv parameters carry over (ROADMAP.md, "
-                "'yolov2/yolov1 layers')")
+                f"{key}: only conv and connected parameters carry over "
+                "(ROADMAP.md, 'the long tail')")
         out[key] = {**p, name: np.ascontiguousarray(
             p[name].transpose(3, 2, 0, 1))}
     return out

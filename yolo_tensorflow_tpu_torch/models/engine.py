@@ -2,16 +2,21 @@
 (``Network``) and training (``TrainNetwork``).
 
 Counterpart of yolo_tensorflow_tpu/models/engine.py (``apply``,
-``infer_shapes``, ``layer_key``) for the layer types the v3 family uses:
-Conv (BN-folded or bias-only, any activation in ``ops.layers.activate``;
-or int8 w8a8, linear or leaky), MaxPool, Route, Shortcut,
-Upsample(mode="nearest") and Detect. Every other spec type, and unfolded
-BN in inference, raise NotImplementedError naming the ROADMAP item that will
-port them; nothing is skipped silently.
+``infer_shapes``, ``layer_key``) for the layer types the v1, v2 and v3
+detectors and the darknet19 classifier use: Conv (BN-folded or bias-only,
+any activation in ``ops.layers.activate``; or int8 w8a8, linear or leaky),
+MaxPool, Route, Shortcut, Reorg (both modes), Upsample(mode="nearest"),
+TransposeFlatten, Dense (folded, with its activation), Dropout (identity
+in inference), GlobalAvgPool, Softmax and Detect. Every other spec type,
+unfolded BN in inference, and Dense and Dropout in training raise
+NotImplementedError naming the ROADMAP item that will port them; nothing is
+skipped silently.
 
 Parameters are the TPU package's folded pytree in the port's layout:
-{layer_key(i): {"w": (Cout, Cin, kh, kw), "b": (Cout,)}} as numpy arrays or
-tensors (``io.weights.params_from_jax`` converts the TPU package's HWIO).
+{layer_key(i): {"w": (Cout, Cin, kh, kw), "b": (Cout,)}} per conv and
+{"w": (In, Out), "b": (Out,)} per Dense, as numpy arrays or tensors
+(``io.weights.params_from_jax`` converts the TPU package's HWIO kernels;
+its (In, Out) connected weights carry over as they are).
 A quantized conv (``ops.quant.quantize_params``) carries {"w_q" int8 OIHW,
 "s_w" (Cout,), "s_x" (), "b" (Cout,)} instead and runs through the int8
 kernel (``ops.kernels.conv_int8``).
@@ -28,24 +33,28 @@ from yolo_tensorflow_tpu_torch.ops import layers as L
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
 
-_V1_V2_LAYERS = (S.Reorg, S.Dense, S.TransposeFlatten, S.Softmax,
-                 S.GlobalAvgPool, S.Dropout)
+_UNWEIGHTED = (S.MaxPool, S.Route, S.Shortcut, S.Reorg, S.TransposeFlatten,
+               S.Dropout, S.GlobalAvgPool, S.Softmax, S.Detect)
 
 
 def layer_key(i: int) -> str:
     return f"L{i:03d}"
 
 
-def check_supported(spec, i: int) -> None:
-    """Raise NotImplementedError for a spec the port cannot run yet."""
-    if isinstance(spec, (S.Conv, S.MaxPool, S.Route, S.Shortcut, S.Detect)):
-        return
-    if isinstance(spec, S.Upsample):
+def check_supported(spec, i: int, train: bool = False) -> None:
+    """Raise NotImplementedError for a spec the port cannot run yet
+    (``train``: in ``TrainNetwork``)."""
+    if isinstance(spec, (S.Dense, S.Dropout)) and train:
+        item = "Queue 1 item 9: the v1 connected head in training"
+    elif isinstance(spec, (S.Conv, S.Dense) + _UNWEIGHTED):
+        if not isinstance(spec, S.Reorg) or spec.mode in ("darknet",
+                                                          "space_to_depth"):
+            return
+        raise ValueError(f"layer {i}: unknown reorg mode {spec.mode!r}")
+    elif isinstance(spec, S.Upsample):
         if spec.mode == "nearest":
             return
         item = "leave out: upsample_bilinear_sym"
-    elif isinstance(spec, _V1_V2_LAYERS):
-        item = "yolov2/yolov1 layers"
     else:
         item = "the long tail"
     raise NotImplementedError(f"layer {i}: {type(spec).__name__} is not "
@@ -53,19 +62,20 @@ def check_supported(spec, i: int) -> None:
 
 
 def infer_shapes(specs, input_shape) -> list:
-    """NHWC output shape of every spec (the TPU package's shape walk, for the
-    types the port runs)."""
+    """Output shape of every spec, NHWC or (B, features) after a flatten
+    (the TPU package's shape walk, for the types the port runs)."""
     shapes = []
     cur = tuple(input_shape)
     for i, spec in enumerate(specs):
         check_supported(spec, i)
-        b, h, w, c = cur
         if isinstance(spec, S.Conv):
+            b, h, w, c = cur
             k, s = spec.size, spec.stride
             p = k // 2 if spec.pad < 0 else spec.pad
             cur = (b, (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1,
                    spec.filters)
         elif isinstance(spec, S.MaxPool):
+            b, h, w, c = cur
             if spec.stride == spec.size:
                 cur = (b, h // spec.stride, w // spec.stride, c)
             else:  # SAME
@@ -74,16 +84,41 @@ def infer_shapes(specs, input_shape) -> list:
             ts = [input_shape if S.resolve_ref(r, i) == S.INPUT
                   else shapes[S.resolve_ref(r, i)] for r in spec.refs]
             cur = (*ts[0][:3], sum(t[3] for t in ts))
+        elif isinstance(spec, S.Reorg):
+            b, h, w, c = cur
+            st = spec.stride
+            cur = (b, h // st, w // st, c * st * st)
         elif isinstance(spec, S.Upsample):
+            b, h, w, c = cur
             cur = (b, h * spec.factor, w * spec.factor, c)
+        elif isinstance(spec, S.TransposeFlatten):
+            b, h, w, c = cur
+            cur = (b, c * h * w)
+        elif isinstance(spec, S.Dense):
+            cur = (cur[0], spec.units)
+        elif isinstance(spec, S.GlobalAvgPool):
+            cur = (cur[0], cur[3])
         shapes.append(cur)
     return shapes
 
 
+def softmax(x, spec):
+    """Softmax over the last axis in float32, in ``spec.groups`` contiguous
+    chunks, the logits divided by ``spec.temperature`` first."""
+    x = x.to(torch.float32)
+    if spec.temperature != 1.0:
+        x = x / spec.temperature
+    if spec.groups > 1:
+        return torch.softmax(
+            x.reshape(*x.shape[:-1], spec.groups, -1), dim=-1).reshape(x.shape)
+    return torch.softmax(x, dim=-1)
+
+
 def apply_unweighted(spec, i, cur, x, outputs):
     """Output of spec i when it holds no parameters (MaxPool, Route,
-    Shortcut, Upsample; Detect passes ``cur`` through). ``x`` is the network
-    input, ``outputs`` every earlier layer's output."""
+    Shortcut, Reorg, Upsample, TransposeFlatten, GlobalAvgPool, Softmax;
+    Detect, and Dropout outside training, pass ``cur`` through). ``x`` is
+    the network input, ``outputs`` every earlier layer's output."""
     if isinstance(spec, S.MaxPool):
         return L.max_pool(cur, spec.size, spec.stride)
     if isinstance(spec, S.Route):
@@ -93,9 +128,25 @@ def apply_unweighted(spec, i, cur, x, outputs):
     if isinstance(spec, S.Shortcut):
         r = S.resolve_ref(spec.ref, i)
         return cur + (x if r == S.INPUT else outputs[r])
+    if isinstance(spec, S.Reorg):
+        fn = (L.darknet_reorg if spec.mode == "darknet"
+              else L.space_to_depth)
+        return fn(cur, spec.stride)
     if isinstance(spec, S.Upsample):
         return L.upsample_nearest(cur, spec.factor)
+    if isinstance(spec, S.TransposeFlatten):
+        return L.transpose_flatten(cur)
+    if isinstance(spec, S.GlobalAvgPool):
+        return cur.mean(dim=(2, 3))
+    if isinstance(spec, S.Softmax):
+        return softmax(cur, spec)
     return cur
+
+
+def head_view(cur):
+    """What a Detect marker hands on: the NHWC view of a conv output, or a
+    connected or pooled (B, features) output as it is."""
+    return cur.permute(0, 2, 3, 1) if cur.dim() == 4 else cur
 
 
 class QuantConv(nn.Module):
@@ -130,6 +181,26 @@ class QuantConv(nn.Module):
                               epilogue_dtype=self.dtype)
 
 
+class DenseLayer(nn.Module):
+    """One folded connected layer: ``ops.layers.dense`` and the activation.
+    ``w`` is (In, Out), the TPU package's layout, held in the dtype of the
+    layer's input (the TPU package rounds it to that on every call); the
+    output is float32. Plain attributes, not buffers, for QuantConv's
+    reason: the second connected layer of a bf16 network takes a float32
+    input and must keep float32 weights."""
+
+    def __init__(self, p, spec, *, device, dtype):
+        super().__init__()
+        self.act = spec.act
+        self.w = torch.as_tensor(np.asarray(p["w"], np.float32)).to(
+            device=device, dtype=dtype)
+        self.b = torch.as_tensor(np.asarray(p["b"], np.float32),
+                                 device=device)
+
+    def forward(self, x):
+        return L.activate(L.dense(x, self.w, self.b), self.act)
+
+
 class Network(nn.Module):
     """Folded-inference network over a spec tuple.
 
@@ -137,17 +208,31 @@ class Network(nn.Module):
     memory (``pipeline.normalize_images``) and returns [(feat_nhwc, Detect)]
     for every Detect marker in spec order, like the TPU package's ``apply``.
     Each feat is the NHWC view of a channels-last conv output, contiguous
-    with no copy. ``dtype`` is the compute dtype of weights and activations;
-    float32 runs with cuDNN's TF32 off. Convs whose params hold ``w_q`` are
-    ``QuantConv``s; the others stay cuDNN convs in ``dtype``."""
+    with no copy, or the (B, features) output of a connected head. ``dtype``
+    is the compute dtype of weights and activations; float32 runs with TF32
+    off. Convs whose params hold ``w_q`` are ``QuantConv``s; the others stay
+    cuDNN convs in ``dtype``. Connected layers (``DenseLayer``) put out
+    float32: after the first of them the activations stay float32."""
 
     def __init__(self, specs, params, *, device="cpu", dtype=torch.float32):
         super().__init__()
         self.specs = tuple(specs)
         self.dtype = dtype
         self.convs = nn.ModuleDict()
+        self.dense = nn.ModuleDict()
+        flat_dtype = dtype           # of what the next connected layer takes
         for i, spec in enumerate(self.specs):
             check_supported(spec, i)
+            if isinstance(spec, S.Dense):
+                p = params[layer_key(i)]
+                if "gamma" in p:
+                    raise NotImplementedError(
+                        f"{layer_key(i)}: unfolded connected + batch norm "
+                        "is not ported (ROADMAP.md, Queue 1 item 9): fold "
+                        "it, as io.weights.load_darknet_weights does")
+                self.dense[layer_key(i)] = DenseLayer(
+                    p, spec, device=device, dtype=flat_dtype)
+                flat_dtype = torch.float32
             if not isinstance(spec, S.Conv):
                 continue
             p = params[layer_key(i)]
@@ -184,10 +269,12 @@ class Network(nn.Module):
                     conv = self.convs[layer_key(i)]
                     cur = (conv(cur) if isinstance(conv, QuantConv)
                            else L.activate(conv(cur), spec.act))
+                elif isinstance(spec, S.Dense):
+                    cur = self.dense[layer_key(i)](cur)
                 else:
                     cur = apply_unweighted(spec, i, cur, x, outputs)
                 if isinstance(spec, S.Detect):
-                    detections.append((cur.permute(0, 2, 3, 1), spec))
+                    detections.append((head_view(cur), spec))
                 outputs.append(cur)
         return detections
 
@@ -228,7 +315,7 @@ class TrainNetwork(nn.Module):
         self.specs = tuple(specs)
         self.params = nn.ModuleDict()
         for i, spec in enumerate(self.specs):
-            check_supported(spec, i)
+            check_supported(spec, i, train=True)
             if not isinstance(spec, S.Conv):
                 continue
             key = layer_key(i)
@@ -287,34 +374,37 @@ class TrainNetwork(nn.Module):
                 cur = apply_unweighted(spec, i, cur, x, outputs)
             if isinstance(spec, S.Detect):
                 wide = torch.promote_types(cur.dtype, torch.float32)
-                detections.append((cur.to(wide).permute(0, 2, 3, 1), spec))
+                detections.append((head_view(cur.to(wide)), spec))
             outputs.append(cur)
         return detections, stats
 
 
 def init_params(specs, input_size: int, seed: int, *, in_channels: int = 3,
-                obj_bias: float = 0.0):
+                obj_bias: float = 0.0, size_bias: float = 0.0):
     """Seeded darknet-form parameters, in the port's layout: the numpy
     counterpart of the TPU package's ``engine.init_params`` (which uses
     jax.random). Returns (params, batch_stats) with unfolded BN, i.e. what
     a .weights file holds: BN convs {"w", "gamma", "beta"} with running
-    {"mean", "var"}, bias-only convs {"w", "b"}.
+    {"mean", "var"}, bias-only convs {"w", "b"}, connected layers {"w" (In,
+    Out), "b"}, He-scaled (the last one before a Detect by 1/sqrt(fan_in)).
 
     Drawn so that random weights at full Darknet-53 depth give head logits
     of order 1 (no saturated scores, so no exact ties in top-k): He-scaled
     conv weights, BN scales of ~0.3 on the last conv of each residual branch
     so the residual sum grows slowly, head convs scaled by 1/sqrt(fan_in),
-    and ``obj_bias`` added to every anchor's objectness logit."""
+    ``obj_bias`` added to every anchor's objectness logit and ``size_bias``
+    to its two size logits (a negative one keeps seeded boxes of the region
+    head's large anchors inside the image, as trained boxes are)."""
     rng = np.random.default_rng(seed)
     shapes = infer_shapes(specs, (1, input_size, input_size, in_channels))
     params, stats = {}, {}
-    prev_c = in_channels
+    prev = (1, input_size, input_size, in_channels)
     for i, spec in enumerate(specs):
+        key = layer_key(i)
         if isinstance(spec, S.Conv):
-            cout, k = spec.filters, spec.size
-            fan_in = prev_c * k * k
-            w = rng.standard_normal((cout, prev_c, k, k), dtype=np.float32)
-            key = layer_key(i)
+            cin, cout, k = prev[3], spec.filters, spec.size
+            fan_in = cin * k * k
+            w = rng.standard_normal((cout, cin, k, k), dtype=np.float32)
             if spec.bn:
                 residual = (i + 1 < len(specs)
                             and isinstance(specs[i + 1], S.Shortcut))
@@ -331,11 +421,29 @@ def init_params(specs, input_size: int, seed: int, *, in_channels: int = 3,
                     "var": rng.uniform(0.8, 1.2, cout).astype(np.float32)}
             else:
                 b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
-                if i + 1 < len(specs) and isinstance(specs[i + 1], S.Detect):
+                head = (i + 1 < len(specs)
+                        and isinstance(specs[i + 1], S.Detect))
+                if head:
                     # anchor-major (x, y, w, h, obj, classes) blocks
-                    b.reshape(len(specs[i + 1].anchor_mask), -1)[:, 4] \
-                        += np.float32(obj_bias)
-                params[key] = {"w": w * np.float32(np.sqrt(0.5 / fan_in)),
+                    blocks = b.reshape(len(specs[i + 1].anchor_mask), -1)
+                    blocks[:, 4] += np.float32(obj_bias)
+                    blocks[:, 2:4] += np.float32(size_bias)
+                # bias-only convs inside a backbone (yolov1) keep the He
+                # scale; head convs give logits of order 1
+                gain = 0.5 if head else 2.0
+                params[key] = {"w": w * np.float32(np.sqrt(gain / fan_in)),
                                "b": b}
-        prev_c = shapes[i][3]
+        elif isinstance(spec, S.Dense):
+            if spec.bn:
+                raise NotImplementedError(
+                    f"{key}: connected + batch norm parameters are not "
+                    "drawn (ROADMAP.md, Queue 1 item 9)")
+            fan_in = prev[1]
+            last = i + 1 < len(specs) and isinstance(specs[i + 1], S.Detect)
+            w = rng.standard_normal((fan_in, spec.units), dtype=np.float32)
+            params[key] = {
+                "w": w * np.float32(np.sqrt((1.0 if last else 2.0) / fan_in)),
+                "b": (0.1 * rng.standard_normal(spec.units))
+                .astype(np.float32)}
+        prev = shapes[i]
     return params, stats

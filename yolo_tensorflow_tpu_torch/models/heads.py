@@ -1,10 +1,12 @@
-"""Anchor/grid decode for v2/v3 heads in PyTorch: the plain decode path.
+"""Grid and anchor decode for v1, v2 and v3 heads in PyTorch: the plain
+decode path.
 
 Counterpart of yolo_tensorflow_tpu/models/heads.py, with the same math and
-layouts: head outputs are NHWC (B, G, G, A*(5+C)) with anchor-major
-(x, y, w, h, obj, classes) blocks; boxes come out in normalized image
-coordinates, (B, N, 4) center-x, center-y, w, h, N = G*G*A. Everything is
-computed in float32 whatever the head's dtype.
+layouts: v2/v3 head outputs are NHWC (B, G, G, A*(5+C)) with anchor-major
+(x, y, w, h, obj, classes) blocks, the v1 head is the connected layer's flat
+(B, S*S*(C + 5*boxes)); boxes come out in normalized image coordinates,
+(B, N, 4) center-x, center-y, w, h. Everything is computed in float32
+whatever the head's dtype.
 """
 
 from __future__ import annotations
@@ -12,6 +14,35 @@ from __future__ import annotations
 import torch
 
 from yolo_tensorflow_tpu_torch.config import ModelConfig
+
+
+def decode_v1(pred_flat, cfg: ModelConfig):
+    """pred_flat: (B, S*S*(C + boxes + 4*boxes)) from the connected head ->
+    (boxes_xywh (B, N, 4), conf (B, N), class values (B, N, C)), N =
+    S*S*boxes.
+
+    Layout: the class values first (S*S*C), then the confidences
+    (S*S*boxes), then the boxes (S*S*boxes*4) as (x, y, sqrt-w, sqrt-h); x
+    and y are offsets within the cell, w and h square roots of the
+    normalized size. The outputs are raw: nothing is squashed."""
+    S, Bx, C = cfg.grid, cfg.boxes_per_cell, cfg.num_classes
+    pred = pred_flat.to(torch.float32)
+    batch = pred.shape[0]
+    i1 = S * S * C
+    i2 = i1 + S * S * Bx
+    class_probs = pred[:, :i1].reshape(batch, S, S, 1, C)
+    confs = pred[:, i1:i2].reshape(batch, S * S * Bx)
+    boxes = pred[:, i2:].reshape(batch, S, S, Bx, 4)
+    cells = torch.arange(S, device=pred.device, dtype=torch.float32)
+    x = (boxes[..., 0] + cells.view(1, 1, S, 1)) / S      # column offset
+    y = (boxes[..., 1] + cells.view(1, S, 1, 1)) / S      # row offset
+    w = torch.square(boxes[..., 2])
+    h = torch.square(boxes[..., 3])
+    boxes_xywh = torch.stack([x, y, w, h], dim=-1).reshape(batch, S * S * Bx,
+                                                           4)
+    class_probs = class_probs.expand(batch, S, S, Bx, C).reshape(
+        batch, S * S * Bx, C)
+    return boxes_xywh, confs, class_probs
 
 
 def _rows(feat, num_anchors: int, num_classes: int):
@@ -88,13 +119,19 @@ def head_scales(detections, cfg: ModelConfig):
         stride = cfg.input_size // feat.shape[1]
         return [(feat, [(w * stride, h * stride) for w, h in cfg.anchors],
                  cfg.class_softmax)]
-    raise NotImplementedError("the v1 head is not ported yet (ROADMAP.md, "
-                              "'yolov2/yolov1 layers')")
+    raise NotImplementedError("the per-scale decode covers v2/v3 heads; the "
+                              "v1 head goes through decode_scored")
 
 
 def decode_scored(detections, cfg: ModelConfig):
-    """All scales of a v2/v3 head, concatenated in spec order (v3: 13²
-    then 26² then 52²) -> (boxes_xywh, scores, labels)."""
+    """All scales of a head, concatenated in spec order (v3: 13² then 26²
+    then 52²) -> (boxes_xywh, scores, labels int32). The v1 head's class
+    values are raw, so max and argmax apply to them directly."""
+    if cfg.head == 1:
+        (feat, _), = detections
+        boxes, conf, raw = decode_v1(feat, cfg)
+        return (boxes, conf * raw.amax(dim=-1),
+                raw.argmax(dim=-1).to(torch.int32))
     parts = [decode_scale_scored(f, a, cfg.input_size, cfg.num_classes,
                                  class_softmax=sm)
              for f, a, sm in head_scales(detections, cfg)]

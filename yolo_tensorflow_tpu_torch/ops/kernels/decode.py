@@ -4,8 +4,11 @@ Counterpart of yolo_tensorflow_tpu/ops/pallas/decode.py. A head scale
 (B, G, G, A*(5+C)) becomes xyxy boxes (B, N, 4), score (B, N) = s(obj) *
 best class probability and label (B, N) = argmax class, N = G*G*A, without
 materializing the (N, C) class-probability tensor. The kernel is
-``csrc/decode.cu`` (its header says what bounds it and how it is laid out);
-the plain version is the port's heads.decode_scale_scored.
+``csrc/decode.cu`` (its header says what bounds it and how it is laid out):
+one launch decodes every scale of a head, cut into tiles of consecutive rows
+by ``plan_tiles``. The plain version is the port's
+heads.decode_scale_scored. The v1 head has no kernel, in the TPU package
+either: ``pipeline.make_forward`` decodes it with heads.decode_scored.
 
 Dispatch is by the device of the input: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version. ``launches`` counts kernel
@@ -15,6 +18,8 @@ launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,44 +44,138 @@ def decode_plain(detections, cfg):
     return heads.xywh_to_xyxy(boxes), scores, labels
 
 
-def _launch(feat, anchors_px, input_size, num_classes, class_softmax,
-            boxes, score, label, row_offset):
-    """Run the kernel on one scale, writing rows [row_offset, row_offset+N)
-    of the preallocated outputs."""
+# limits of csrc/decode.cu (kMaxScales, kMaxAnchors, kMaxThreads, kMaxStages,
+# kMaxSharedBytes); tests/test_torch_kernel_host.py holds them to the source
+MAX_SCALES = 4
+MAX_ANCHORS = 16
+MAX_TILE_ROWS = 256
+MAX_STAGES = 3
+MAX_SHARED_BYTES = 227 * 1024
+# what the tile plan starts from, and how many CTAs of shared memory it
+# leaves room for on an SM
+TILE_ROWS = 128
+STAGES = 3
+CTAS_PER_SM = 2
+
+
+class TilePlan(NamedTuple):
+    """How one launch cuts its scales into tiles of consecutive rows."""
+    tile_rows: int        # rows a tile, a multiple of 8
+    stages: int           # depth of the shared-memory ring
+    shared_bytes: int     # dynamic shared memory a CTA asks for
+    first_tile: tuple     # per scale, the index of its first tile
+    total_tiles: int
+
+
+def plan_tiles(rows, row_elems: int, elem_bytes: int) -> TilePlan:
+    """The tile plan of one launch over scales of ``rows`` head rows each,
+    ``row_elems`` = 5 + C values of ``elem_bytes`` a row.
+
+    A tile is ``tile_rows`` consecutive rows of one scale, a multiple of 8,
+    so that every tile of a scale spans whole 16-byte chunks from the
+    scale's base for any C and either dtype; only a scale's last tile may
+    be ragged. Three stages of 128 rows, two stages where
+    three would leave no room for ``CTAS_PER_SM`` CTAs on an SM, and then
+    fewer rows a tile (wide rows: many classes in f32)."""
+    row_bytes = row_elems * elem_bytes
+    budget = MAX_SHARED_BYTES // CTAS_PER_SM
+    stages = STAGES if STAGES * TILE_ROWS * row_bytes <= budget else 2
+    tile_rows = TILE_ROWS
+    while tile_rows > 8 and stages * tile_rows * row_bytes > budget:
+        tile_rows //= 2
+    shared = stages * tile_rows * row_bytes
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"decode kernel: no tile plan for rows of {row_bytes} bytes "
+            f"({stages} stages of {tile_rows} rows: {shared} bytes of "
+            f"shared memory, limit {MAX_SHARED_BYTES})")
+    first, total = [], 0
+    for n in rows:
+        first.append(total)
+        total += -(-n // tile_rows)
+    return TilePlan(tile_rows, stages, shared, tuple(first), total)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(batch, geometry, input_size, num_classes, elem_bytes,
+                 total):
+    """The host arrays of one launch, which depend only on its geometry
+    ((G, anchors_px) per scale): (scale table, anchors in grid cells, tile
+    plan). The scales fill the ``total`` output rows of an image one after
+    the other. Cached: a serving loop launches the same geometry every
+    step."""
+    table, wh, rows = [], [], []
+    row_offset = 0
+    for G, anchors_px in geometry:
+        A = len(anchors_px)
+        n = G * G * A
+        if batch * n >= 2 ** 31:
+            raise ValueError(f"{batch * n} head rows in one scale")
+        stride = input_size // G
+        wh += [v / stride for anchor in anchors_px for v in anchor]
+        table.append([batch * n, n, G, A, row_offset])
+        rows.append(batch * n)
+        row_offset += n
+    plan = plan_tiles(rows, 5 + num_classes, elem_bytes)
+    if row_offset != total:
+        raise ValueError(f"the scales hold {row_offset} rows an image, the "
+                         f"outputs {total}")
+    flat = [v for t, first in zip(table, plan.first_tile)
+            for v in (*t, first)]
+    return ((ctypes.c_int * len(flat))(*flat),
+            (ctypes.c_float * len(wh))(*wh), plan)
+
+
+def _launch(scales, input_size, num_classes, boxes, score, label):
+    """One kernel launch over the scales [(feat, anchors_px, class_softmax)]
+    of a head, MAX_SCALES at most, written one after the other into the
+    preallocated outputs."""
     global launches
-    B, G, Gw, ch = feat.shape
-    A = ch // (5 + num_classes)
-    if G != Gw or A * (5 + num_classes) != ch:
-        raise ValueError(f"head scale {tuple(feat.shape)} is not "
-                         f"(B, G, G, A*(5+{num_classes}))")
-    if feat.dtype not in (torch.float32, torch.bfloat16):
+    if not 1 <= len(scales) <= MAX_SCALES:
+        raise ValueError(f"{len(scales)} scales in one decode launch "
+                         f"(1 to {MAX_SCALES})")
+    feat0, _, softmax = scales[0]
+    B, total = boxes.shape[:2]
+    if feat0.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decode kernel takes float32 or bfloat16, "
-                        f"not {feat.dtype}")
-    if not feat.is_contiguous():
-        raise ValueError("decode kernel needs a contiguous NHWC head "
-                         "(the NHWC view of a channels-last conv output)")
-    if len(anchors_px) != A:
-        raise ValueError(f"{len(anchors_px)} anchors for {A} per cell")
-    total = boxes.shape[1]
-    if row_offset + G * G * A > total:
-        raise ValueError("scale rows overrun the output")
+                        f"not {feat0.dtype}")
     for t, dt in ((boxes, torch.float32), (score, torch.float32),
                   (label, torch.int32)):
-        if (t.device != feat.device or t.dtype != dt
+        if (t.device != feat0.device or t.dtype != dt
                 or not t.is_contiguous() or t.shape[:2] != (B, total)):
             raise ValueError("decode kernel outputs must be contiguous "
                              "(B, rows[, 4]) f32/f32/i32 on the input's "
                              "device")
-    stride = input_size // G
-    wh = [v / stride for anchor in anchors_px for v in anchor]
+    for feat, anchors_px, sm in scales:
+        Bf, G, Gw, ch = feat.shape
+        A = ch // (5 + num_classes)
+        if Bf != B or G != Gw or A * (5 + num_classes) != ch:
+            raise ValueError(f"head scale {tuple(feat.shape)} is not "
+                             f"({B}, G, G, A*(5+{num_classes}))")
+        if (feat.dtype != feat0.dtype or feat.device != feat0.device
+                or bool(sm) != bool(softmax)):
+            raise ValueError("the scales of one decode launch share dtype, "
+                             "device and class activation")
+        if not feat.is_contiguous():
+            raise ValueError("decode kernel needs a contiguous NHWC head "
+                             "(the NHWC view of a channels-last conv output)")
+        if len(anchors_px) != A or not 1 <= A <= MAX_ANCHORS:
+            raise ValueError(f"{len(anchors_px)} anchors for {A} per cell "
+                             f"(1 to {MAX_ANCHORS})")
+    table, wh, plan = _launch_args(
+        B, tuple((f.shape[1], tuple(tuple(a) for a in anchors))
+                 for f, anchors, _ in scales),
+        input_size, num_classes, feat0.element_size(), total)
     lib = build.load()
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
-        err = lib.yolo_decode_scale(
-            feat.data_ptr(), int(feat.dtype == torch.bfloat16),
-            boxes.data_ptr(), score.data_ptr(), label.data_ptr(), B, G, A,
-            num_classes, (ctypes.c_float * len(wh))(*wh),
-            int(class_softmax), row_offset, total, stream)
+    with torch.cuda.device(feat0.device):
+        stream = torch.cuda.current_stream(feat0.device).cuda_stream
+        err = lib.yolo_decode(
+            (ctypes.c_void_p * len(scales))(*(f.data_ptr()
+                                              for f, _, _ in scales)),
+            table, wh, len(scales), num_classes, int(bool(softmax)),
+            int(feat0.dtype == torch.bfloat16), plan.tile_rows, plan.stages,
+            plan.total_tiles, total, boxes.data_ptr(), score.data_ptr(),
+            label.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
     launches += 1
@@ -105,24 +204,21 @@ def decode_scale_fused(feat, anchors_px, input_size: int, num_classes: int,
                                   class_softmax=class_softmax)
     B, G = feat.shape[:2]
     out = _outputs(feat, B, G * G * len(anchors_px))
-    _launch(feat, anchors_px, input_size, num_classes, class_softmax, *out,
-            row_offset=0)
+    _launch([(feat, anchors_px, class_softmax)], input_size, num_classes,
+            *out)
     return out
 
 
 def decode_fused(detections, cfg):
-    """All scales of a model, concatenated in spec order like the TPU
-    package's decode_fused. Returns (boxes_xyxy, scores, labels). On CUDA
-    every scale writes into its row range of one set of outputs."""
+    """All scales of a v2 or v3 head, concatenated in spec order like the
+    TPU package's decode_fused. Returns (boxes_xyxy, scores, labels). On
+    CUDA one launch decodes every scale (MAX_SCALES at most), each into its
+    row range of one set of outputs."""
     scales = heads.head_scales(detections, cfg)
     feat0 = scales[0][0]
     if not _check_device(feat0):
         return decode_plain(detections, cfg)
-    rows = [f.shape[1] * f.shape[2] * len(a) for f, a, _ in scales]
-    out = _outputs(feat0, feat0.shape[0], sum(rows))
-    offset = 0
-    for (f, a, sm), n in zip(scales, rows):
-        _launch(f, a, cfg.input_size, cfg.num_classes, sm, *out,
-                row_offset=offset)
-        offset += n
+    rows = sum(f.shape[1] * f.shape[2] * len(a) for f, a, _ in scales)
+    out = _outputs(feat0, feat0.shape[0], rows)
+    _launch(scales, cfg.input_size, cfg.num_classes, *out)
     return out

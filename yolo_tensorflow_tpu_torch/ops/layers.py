@@ -1,10 +1,11 @@
 """Primitive ops in PyTorch, for inference and training.
 
-Counterpart of yolo_tensorflow_tpu/ops/layers.py for the layers the v3
-family runs. Tensors here are NCHW in ``torch.channels_last`` memory format
-(the NHWC bytes of the TPU package, so a permute to NHWC is free) and conv
-weights are OIHW. Convolution goes to cuDNN through ``F.conv2d``: it was
-XLA's on the TPU, never a Pallas kernel.
+Counterpart of yolo_tensorflow_tpu/ops/layers.py for the layers the v1, v2
+and v3 detectors run. Tensors here are NCHW in ``torch.channels_last``
+memory format (the NHWC bytes of the TPU package, so a permute to NHWC is
+free), conv weights are OIHW and connected weights (In, Out). Convolution
+goes to cuDNN through ``F.conv2d`` and ``dense`` to cuBLAS through
+``torch.matmul``: both were XLA's on the TPU, never a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -40,17 +41,26 @@ def activate(x, name: str):
                      "(supported: leaky, logistic, relu, tanh, linear)")
 
 
+@contextlib.contextmanager
 def exact_f32_convs(enabled: bool = True):
     """Context in which cuDNN runs float32 convolutions, forward and
-    backward, in full float32: it otherwise runs them in TF32 (the TPU
-    package forces Precision.HIGHEST in its float32 parity mode for the same
-    reason). The port's paths run no matmul. ``enabled=False`` changes
-    nothing."""
+    backward, and cuBLAS float32 matrix products (``dense``) in full
+    float32, not TF32 (the TPU package forces Precision.HIGHEST in its
+    float32 parity mode for the same reason). cuDNN's default is TF32;
+    cuBLAS's is full float32, and is set here all the same.
+    ``enabled=False`` changes nothing."""
     if not enabled:
-        return contextlib.nullcontext()
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+        yield
+        return
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    tf32 = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = tf32
 
 
 def is_narrow(dtype) -> bool:
@@ -140,3 +150,59 @@ def max_pool(x, size=2, stride=2):
 def upsample_nearest(x, factor=2):
     """Nearest-neighbour integer upsample (darknet's upsample layer)."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def space_to_depth(x, block=2):
+    """Reorg with tf.space_to_depth's channel order, on NCHW x:
+    out[b, (di*block + dj)*C + c, i, j] = x[b, c, block*i + di, block*j + dj]
+    (what the reference's TF graphs compute). Returns channels-last."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // block, block, w // block, block)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, block * block * c, h // block, w // block).contiguous(
+        memory_format=torch.channels_last)
+
+
+def darknet_reorg(x, stride=2):
+    """Darknet's actual reorg (src/blas.c reorg_cpu, forward = 0), which is
+    neither ``space_to_depth`` nor ``F.pixel_unshuffle``. The C code
+    reinterprets the input's CHW buffer (C, H, W) as (C/s^2, H*s, W*s),
+    gathers
+
+      mid[k, j, i] = view[k % (C/s^2), j*s + (k // (C/s^2)) // s,
+                                       i*s + (k // (C/s^2)) % s]
+
+    and reinterprets mid's buffer as (C*s^2, H/s, W/s). Darknet-trained
+    weights of the conv after the passthrough expect this channel order.
+
+    x is (B, C, H, W) in any memory format. The buffer the C code
+    reinterprets is the CHW one, so x is first laid out truly NCHW (one
+    copy of a channels-last x); mid's channels k = off*(C/s^2) + c2 are s^2
+    strided slices of the view, one per off, concatenated. Returns
+    channels-last, as every layer here does."""
+    b, c, h, w = x.shape
+    s = stride
+    view = x.contiguous().reshape(b, c // (s * s), h * s, w * s)
+    mid = torch.cat([view[:, :, off // s::s, off % s::s]
+                     for off in range(s * s)], dim=1)          # (B, C, H, W)
+    return mid.reshape(b, c * s * s, h // s, w // s).contiguous(
+        memory_format=torch.channels_last)
+
+
+def transpose_flatten(x):
+    """(B, C, H, W) -> (B, C*H*W) in C, H, W order: YOLOv1's connected-head
+    input layout (the TPU package transposes its NHWC to NCHW first; here
+    the logical order is NCHW already, and the reshape copies a
+    channels-last x into it)."""
+    return x.reshape(x.shape[0], -1)
+
+
+def dense(x, w, b, act=None):
+    """Fully connected: x (B, In) @ w (In, Out) + b, the TPU package's
+    layout. w is rounded to x's dtype first, the products are summed in
+    float32 and the result is float32 whatever x's dtype, as the TPU
+    package's ``preferred_element_type`` gives it: a bf16 x and w widen to
+    float32 exactly, so one float32 product computes the same sums."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    out = torch.matmul(x.to(wide), w.to(x.dtype).to(wide)) + b.to(wide)
+    return out if act is None else act(out)

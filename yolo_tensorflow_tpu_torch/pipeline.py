@@ -4,8 +4,9 @@ Counterpart of yolo_tensorflow_tpu/pipeline.py for the main path,
 ``Detector.detect_batch``: normalize -> backbone (cuDNN convolutions,
 channels-last; or, for int8 params, the int8 conv kernel of
 ops/kernels/conv_int8.py) -> fused decode + score (the CUDA kernel of
-ops/kernels/decode.py) -> top-k + exact greedy NMS -> Detections. PyTorch
-runs it eagerly; there is no jit.
+ops/kernels/decode.py for the v2 and v3 heads, plain PyTorch for v1's 98
+boxes) -> top-k + exact greedy NMS -> Detections. PyTorch runs it eagerly;
+there is no jit.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from yolo_tensorflow_tpu_torch import config as C
 from yolo_tensorflow_tpu_torch.io import weights as W
-from yolo_tensorflow_tpu_torch.models import engine
+from yolo_tensorflow_tpu_torch.models import engine, heads
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
 from yolo_tensorflow_tpu_torch.post import nms as NMS
 
@@ -65,16 +66,22 @@ def make_forward(cfg: C.ModelConfig, *, num_candidates: int = 256,
                  class_aware_nms: Optional[bool] = None):
     """Build forward(network, uint8 images (B, S, S, 3)) -> Detections.
 
-    Decode and scoring always go through ``ops.kernels.decode.decode_fused``:
-    the CUDA kernel on a CUDA input, its plain PyTorch version on a CPU one.
-    (The TPU package's ``fused_decode=False`` default rests on a v5e timing
-    that says nothing about this card.)"""
+    Decode and scoring of the v2 and v3 heads always go through
+    ``ops.kernels.decode.decode_fused``: the CUDA kernel on a CUDA input,
+    its plain PyTorch version on a CPU one. (The TPU package's
+    ``fused_decode=False`` default rests on a v5e timing that says nothing
+    about this card.) The v1 grid head (98 boxes an image) has no kernel,
+    in the TPU package either: it decodes through ``heads.decode_scored``."""
     nms_kw = _nms_opts(cfg, max_detections, conf_threshold, iou_threshold,
                        class_aware_nms, num_candidates)
 
     def forward(network, images_uint8):
         x = normalize_images(images_uint8, cfg, network.dtype)
-        boxes, scores, labels = K.decode_fused(network(x), cfg)
+        if cfg.head == 1:
+            boxes, scores, labels = heads.decode_scored(network(x), cfg)
+            boxes = heads.xywh_to_xyxy(boxes)
+        else:
+            boxes, scores, labels = K.decode_fused(network(x), cfg)
         return NMS.batched_nms_scored(boxes, scores, labels, **nms_kw)
 
     return forward
