@@ -7,7 +7,8 @@ Phases, one line or more each (a failed phase exits nonzero, and no phase's
 failure is caught):
   1. device: the card, as nvidia-smi reports its name and power limit;
   2. build:  nvcc builds the CUDA kernels (decode, int8 conv, fused conv +
-             BN statistics; the two convs share csrc/igemm_sm90.cuh) from
+             BN statistics, greedy NMS; the two convs share
+             csrc/igemm_sm90.cuh) from
              yolo_tensorflow_tpu_torch/csrc, one nvcc process per source;
   3. kernel: the decode kernel against its plain PyTorch version on the same
              CUDA tensors: at the yolov3-416 head shapes (sigmoid classes,
@@ -21,9 +22,13 @@ failure is caught):
              events with the host kept ahead of the card, and the wrapper's
              host time beside them;
   4. f32:    Detector("yolov3", <seeded .weights>).detect_batch at 416 on
-             CUDA, through the decode kernel (its launch count is read around
-             this run), against the same port on the CPU;
-  5. bf16:   batch-64 bf16 serving throughput, and where its time goes;
+             CUDA, through the decode and NMS kernels (their launch counts
+             are read around this run), against the same port on the CPU;
+  5. bf16:   batch-64 bf16 serving throughput, and where its time goes
+             (backbone, decode and NMS device ms); one forward with its
+             launches counted and host syncs made errors
+             (torch.cuda.set_sync_debug_mode("error")), as in phases 7, 12,
+             13 and 15;
   6. int8 kernel: the int8 conv kernel against its plain version. Exactly on
              the two Pallas probe shapes with integer inputs (the output is
              then the int32 accumulator itself); within 1 ulp on every
@@ -63,14 +68,27 @@ failure is caught):
  11. yolov2 f32: Detector("yolov2", <seeded .weights>).detect_batch at 416,
              batch 2, on CUDA (Darknet-19, darknet's reorg passthrough, the
              decode kernel's softmax branch: one launch, counted) against
-             the same port on the CPU;
+             the same port on the CPU; then a hand-made head (CRAFTED) at
+             the model's own threshold of 0.5, against the CPU port and
+             against its hand-computed boxes and scores;
  12. yolov2 bf16: batch-64 bf16 serving throughput, its split into
              backbone, decode and NMS, and darknet_reorg's device time;
  13. yolov1: Detector("yolov1", <seeded .weights>) at 448 (24 bias-only
              convs, the 50176 -> 512 -> 4096 -> 1470 connected head, the
              grid decode in plain PyTorch: the TPU kernel does not cover it
              either), f32 batch 2 against the CPU port, then bf16 batch 64
-             with the same split and the three dense layers' device times.
+             with the same split and the three dense layers' device times;
+ 14. nms kernel: the greedy NMS kernel against its plain version on the
+             card, all five Detections fields exactly equal: at phase 5's
+             decode outputs (yolov3-416, batch 64, K = 256), class-aware off
+             and on, and at the odd cases of NMS_ODD and K = 9000; top-k and
+             kernel device ms, the bound, the plain version's and the former
+             per-image loop's host ms;
+ 15. fused letterbox: Detector(letterbox=True, fused=True) on uint8
+             canvases of mixed image sizes, f32 against the CPU port (boxes
+             in pixels), then bf16 serving of VGA frames in 768 canvases at
+             batch 64 with the step split into letterbox, backbone, decode,
+             NMS and unmap, then one int8 step (the bf16 letterbox default).
 Then a JSON line describing each kernel, and last the JSON result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
@@ -185,6 +203,35 @@ BNSTAT_SUM_TOL = 1e-5
 # parameters (a single parameter's floor is itself noise).
 TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)
 GRAD_FLOOR = (4.0, 1e-4)
+SPIN = 20_000_000        # ~10 ms of the card: every launch is queued first
+# Odd NMS cases (phase 14; tests/test_torch_nms.py holds the plain version
+# to the JAX package on the same list): each with class-aware NMS off and
+# on, the kernel equal to the plain version in all five fields
+NMS_ODD = ("batch 1", "K > N", "D > K", "none active", "all active",
+           "chain", "IoU at the threshold", "degenerate", "K = 8", "K = 64",
+           "K = 256", "K = 300", "K = 1024")
+NMS_ODD_KW = dict(conf_threshold=0.3, iou_threshold=0.45, max_detections=20,
+                  num_candidates=64)
+NMS_BIG_K = 9000         # candidates near the most a CTA's shared memory holds
+NMS_FLOPS = 15           # f32 operations of one IoU and its compare
+# Phase 15, the fused letterbox: (canvas side, ((h, w), ...)) of the f32
+# parity batches (mixed sizes, a 1x1 image, a canvas above the 768 bucket)
+# and of the bf16 serving batch (VGA frames in the 768 bucket)
+LETTERBOX_PARITY = ((768, ((480, 640), (500, 300), (416, 416), (1, 1))),
+                    (1280, ((720, 1280),)))
+LETTERBOX_SERVE = (768, (480, 640))
+LETTERBOX_TOL = 3e-5     # tests/test_preprocess.py's bound against the C
+# f32 Detections in pixels, card vs CPU: PARITY_TOL's rtol, and its atol of
+# 1e-5 of the image in pixels of images up to 1280 wide
+FUSED_TOL = dict(rtol=1e-4, atol=1.28e-2)
+# The hand-made yolov2 head of phase 11, a deterministic end-to-end drive:
+# (anchor, class, objectness bias, class logit). Every conv passes the
+# input's red channel through unchanged (its centre tap 1), the images make
+# it constant over each 32 x 32 cell and distinct between cells, and the
+# head adds it to both anchors' objectness: scores sigmoid(4 + R/255) *
+# 0.958, about 0.94-0.95, distinct (anchor 4 half a step above anchor 0),
+# at the model's own threshold 0.5.
+CRAFTED = ((0, 0, 4.0, 7.5), (4, 1, 4.0 + 0.5 / 255, 7.5))
 
 
 def require(cond, msg):
@@ -215,8 +262,9 @@ def cuda_ms(fn, iters=20, warmup=3, ahead_cycles=0):
 
 def wall_ms(fn, iters):
     """Host time of ``iters`` calls of fn(), ending in a synchronize, in ms
-    per call (the NMS loop syncs with the host, so events alone would not
-    say what a caller waits)."""
+    per call: what a caller waits for a serving step, and the time of a
+    plain version that syncs with the host (events alone would not say
+    what a caller waits)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -225,14 +273,41 @@ def wall_ms(fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def serve_rate(det, x, iters=5):
-    """(sorted step ms, img/s) of detect_batch over 3 samples of ``iters``
-    chained steps, after 3 warm-up steps; and the last Detections."""
+def serve_rate(step, batch, iters=5):
+    """(sorted step ms, img/s) of ``step()`` (one batch of ``batch`` images)
+    over 3 samples of ``iters`` chained steps, after 3 warm-up steps; and
+    the last Detections."""
     for _ in range(3):
-        out = det.detect_batch(x)
-    step_ms = sorted(wall_ms(lambda: det.detect_batch(x), iters)
-                     for _ in range(3))
-    return step_ms, [x.shape[0] * 1e3 / ms for ms in step_ms], out
+        out = step()
+    step_ms = sorted(wall_ms(step, iters) for _ in range(3))
+    return step_ms, [batch * 1e3 / ms for ms in step_ms], out
+
+
+def counted_forward(label, step, **want):
+    """One forward, ``step()``, with every kernel's launch count set to 0
+    just before it and host syncs made errors during it
+    (``torch.cuda.set_sync_debug_mode("error")``: a sync raises, and is not
+    caught). ``want``: the launches expected of each counted wrapper
+    (decode, nms, int8). Returns the forward's output."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    wrappers = {"decode": K, "nms": NK, "int8": Q8}
+    torch.cuda.synchronize()
+    for module in wrappers.values():
+        module.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = {name: wrappers[name].launches for name in want}
+    require(got == want, f"{label}: one forward launched {got}, expected "
+            f"{want}")
+    print(f"[{label}] one forward, inputs on the card: no host sync under "
+          f"set_sync_debug_mode('error'); launches {got}")
+    return out
 
 
 def bound_ms(nbytes, ops, ops_s):
@@ -270,8 +345,9 @@ def unaligned(t):
 def check_detections(label, det, imgs, got, want, cfg, kind, conf=CONF):
     """Card Detections (numpy) against the CPU port's: num, classes and
     valid equal, boxes and scores within PARITY_TOL, at least one detection
-    per image, and no exactly tied score among any image's top 256 (the
-    comparison would then depend on tie order). Returns max |err|."""
+    per image, and no exactly tied score among the active ones (above
+    ``conf``) of any image's top 256 (the comparison would then depend on
+    tie order). Returns max |err|."""
     from yolo_tensorflow_tpu_torch.models import heads
     from yolo_tensorflow_tpu_torch.pipeline import normalize_images
     with torch.inference_mode():
@@ -280,10 +356,12 @@ def check_detections(label, det, imgs, got, want, cfg, kind, conf=CONF):
         scores = heads.decode_scored(feats, cfg)[1]
     k = min(256, scores.shape[1])
     top = torch.topk(scores, k, dim=1).values
-    ties = [k - torch.unique(row).numel() for row in top]
+    active = [row[row > conf] for row in top]
+    ties = [a.numel() - torch.unique(a).numel() for a in active]
     print(f"[{label}] scores in [{scores.min().item():.4g}, "
           f"{scores.max().item():.4g}], {int((scores > conf).sum())} "
-          f"above {conf}; exact ties in each image's top {k}: {ties}")
+          f"above {conf}; exact ties among each image's active top {k}: "
+          f"{ties}")
     require(not any(ties), "tied top scores: the comparison would depend "
             "on tie order")
     require(np.all(got.num > 0), f"no detections: num={got.num}")
@@ -355,7 +433,6 @@ def decode_kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     v3 = ((13, (6, 7, 8)), (26, (3, 4, 5)), (52, (0, 1, 2)))
     region = ((13, (0, 1, 2, 3, 4)),)
-    spin = 20_000_000        # ~10 ms: every launch is queued before the first
     max_err, fields = 0.0, None
     for name, scales in (("yolov3", v3), ("yolov2", region),
                          ("yolov2-tiny-voc", region)):
@@ -369,7 +446,7 @@ def decode_kernel_phase(dev):
             err, got = decode_check(label, dets, cfg)
             max_err = max(max_err, err)
             kernel_ms = cuda_ms(lambda: K.decode_fused(dets, cfg),
-                                ahead_cycles=spin)
+                                ahead_cycles=SPIN)
             plain_ms = cuda_ms(lambda: K.decode_plain(dets, cfg))
             host_ms = wall_ms(lambda: K.decode_fused(dets, cfg), 200)
             in_bytes = sum(f.numel() * f.element_size() for f, _ in dets)
@@ -607,13 +684,43 @@ def int8_kernel_phase(shapes, dev):
             "bound_ms": tot["bound"], "bound_by": by, "library_ms": None}
 
 
+def step_split(det, x, cfg, conf):
+    """Device ms of the parts of one serving forward of ``det`` on the
+    uint8 images ``x``, from CUDA events with the host kept ahead of the
+    card for the short ones: (backbone, decode, NMS: top-k + gathers + the
+    kernel), and the decode's outputs."""
+    from yolo_tensorflow_tpu_torch.models import heads
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.pipeline import normalize_images
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    with torch.inference_mode():
+        xn = normalize_images(x, cfg, det.network.dtype)
+        net_ms = cuda_ms(lambda: det.network(xn), iters=5)
+        feats = det.network(xn)
+        if cfg.head == 1:
+            def decode():
+                boxes, scores, labels = heads.decode_scored(feats, cfg)
+                return heads.xywh_to_xyxy(boxes), scores, labels
+        else:
+            def decode():
+                return K.decode_fused(feats, cfg)
+        dec_ms = cuda_ms(decode, ahead_cycles=SPIN)
+        decoded = decode()
+        nms_ms = cuda_ms(lambda: NMS.batched_nms_scored(
+            *decoded, conf_threshold=conf, iou_threshold=cfg.iou_threshold,
+            max_detections=cfg.max_detections), ahead_cycles=SPIN)
+    return net_ms, dec_ms, nms_ms, decoded
+
+
 def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
-    """Phase 7. Returns the int8 conv launches of one forward."""
+    """Phase 7. Returns the int8 conv launches of one forward, and the int8
+    params."""
     from yolo_tensorflow_tpu_torch.io import weights as W
     from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.ops import quant as Q
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
     from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
     from yolo_tensorflow_tpu_torch.post import nms as NMS
 
@@ -639,31 +746,34 @@ def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
     gpu = Detector(MODEL, params=qparams, device="cuda", conf_threshold=CONF)
     gpu.detect_batch(imgs)                     # warm-up, outside the count
     torch.cuda.synchronize()
-    Q8.launches = K.launches = 0
+    Q8.launches = K.launches = NK.launches = 0
     got = gpu.detect_batch(imgs)               # f32 epilogue: parity mode
     torch.cuda.synchronize()
     launches, dec_launches = Q8.launches, K.launches
-    require(launches == n_int8 and dec_launches == 1,
+    require(launches == n_int8 and dec_launches == NK.launches == 1,
             f"int8 path launched the int8 conv {launches} times (expected "
-            f"{n_int8}) and the decode {dec_launches} times (expected 1)")
+            f"{n_int8}), the decode {dec_launches} times and NMS "
+            f"{NK.launches} times (expected 1 each)")
     cpu = Detector(MODEL, params=qparams, device="cpu", conf_threshold=CONF)
     check_detections("7 int8 f32", gpu, imgs, NMS.fetch_detections(got),
                      NMS.fetch_detections(cpu.detect_batch(imgs)), cfg, kind)
     print(f"[7 int8 f32] one forward launched the int8 conv {launches} times "
-          f"and the decode {dec_launches} times")
+          f"and the decode and NMS once each")
     del gpu, cpu
 
     det = Detector(MODEL, params=qparams, device="cuda",
                    compute_dtype=torch.bfloat16, conf_threshold=CONF)
     torch.cuda.reset_peak_memory_stats()
-    step_ms, rates, out = serve_rate(det, x)
+    step_ms, rates, out = serve_rate(lambda: det.detect_batch(x), len(x))
     out = NMS.fetch_detections(out)
     require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
             "int8 bf16 detections empty or not finite")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counted_forward("7 int8 bf16", lambda: det.detect_batch(x),
+                    int8=n_int8, decode=1, nms=1)
+    net_ms, dec_ms, nms_ms, _ = step_split(det, x, cfg, CONF)
     with torch.inference_mode():
         xn = normalize_images(x, cfg, torch.bfloat16)
-        net_ms = cuda_ms(lambda: det.network(xn), iters=5)
         # the int8 convs' share: CUDA events around each of them
         events = []
         quant = [m for m in det.network.modules()
@@ -688,9 +798,10 @@ def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
           f"(spread {min(rates):.1f}..{max(rates):.1f}), step "
           f"{statistics.median(step_ms):.2f} ms; float bf16 in phase 5: "
           f"{float_rate:.1f} img/s; backbone {net_ms:.2f} ms = int8 convs "
-          f"{conv_ms:.2f} ms + the rest {net_ms - conv_ms:.2f} ms; peak "
-          f"memory {peak:.2f} GiB; mean num {out.num.mean():.1f}")
-    return launches
+          f"{conv_ms:.2f} ms + the rest {net_ms - conv_ms:.2f} ms, decode "
+          f"{dec_ms:.4f} ms, NMS {nms_ms:.4f} ms (device); peak memory "
+          f"{peak:.2f} GiB; mean num {out.num.mean():.1f}")
+    return launches, qparams
 
 
 def bnstat_shapes(specs, cfg):
@@ -997,20 +1108,121 @@ def train_bf16_phase(cfg, specs, params, stats, dev, n_fused, smi):
     return launches
 
 
+def crafted_region_params(cfg, specs):
+    """Darknet-form parameters of the hand-made yolov2 head (CRAFTED): every
+    array zero, BN an identity (gamma 1, mean 0, var 1), each conv's centre
+    tap 1 from the channel that carries the input's red channel (followed
+    through routes; the reorg branch carries none) to its output channel 0,
+    and the head conv's objectness and class biases per CRAFTED with the
+    objectness weight 1 on that channel."""
+    from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.models import specs as S
+    size = cfg.input_size
+    params, stats = engine.init_params(specs, size, SEED)
+    shapes = engine.infer_shapes(specs, (1, size, size, 3))
+    carrier = []             # per layer: the channel that carries the signal
+    for i, spec in enumerate(specs):
+        key = engine.layer_key(i)
+        prev = carrier[i - 1] if i else 0
+        if isinstance(spec, S.Conv):
+            p = params[key]
+            for v in p.values():
+                v[...] = 0
+            if spec.bn:
+                p["gamma"][:] = 1
+                stats[key]["mean"][:] = 0
+                stats[key]["var"][:] = 1
+            if isinstance(specs[i + 1], S.Detect):
+                row = 5 + cfg.num_classes          # anchor-major blocks
+                for anchor, cls, obj, logit in CRAFTED:
+                    p["w"][anchor * row + 4, prev, 0, 0] = 1
+                    p["b"][anchor * row + 4] = obj
+                    p["b"][anchor * row + 5 + cls] = logit
+                carrier.append(None)
+            elif prev is None:
+                carrier.append(None)
+            else:
+                p["w"][0, prev, spec.size // 2, spec.size // 2] = 1
+                carrier.append(0)
+        elif isinstance(spec, S.Route):
+            offset, found = 0, None
+            for r in spec.refs:
+                j = S.resolve_ref(r, i)
+                if found is None and carrier[j] is not None:
+                    found = offset + carrier[j]
+                offset += shapes[j][3]
+            carrier.append(found)
+        elif isinstance(spec, S.Reorg):
+            carrier.append(None)
+        else:
+            carrier.append(prev)
+    return params, stats
+
+
+def crafted_images(batch, size):
+    """uint8 images whose red channel is constant over each 32 x 32 cell
+    and distinct between cells: 16 * column + row, and the transpose."""
+    cell = np.arange(size) // 32
+    red = 16 * cell[None, :] + cell[:, None]
+    imgs = np.zeros((batch, size, size, 3), np.uint8)
+    for i in range(batch):
+        imgs[i, :, :, 0] = red if i % 2 == 0 else red.T
+    return imgs
+
+
+def check_crafted(label, got, imgs, cfg):
+    """The hand-made head's Detections against their hand-computed values:
+    each box an anchor-0 or anchor-4 box on its cell's centre, score
+    sigmoid(objectness) * softmax best within 1e-3."""
+    grid = cfg.input_size // 32
+    worst = 0.0
+    # every anchor-0 box is kept (they do not overlap), so num is D
+    want_num = min(cfg.max_detections, grid * grid)
+    require(np.all(got.num >= want_num),
+            f"{label}: num {got.num}, expected at least {want_num} each")
+    for img, n in enumerate(got.num):
+        for box, score, cls in zip(got.boxes[img, :n], got.scores[img, :n],
+                                   got.classes[img, :n]):
+            anchor, _, obj, logit = {c[1]: c for c in CRAFTED}[int(cls)]
+            cx, cy = (box[0] + box[2]) / 2, (box[1] + box[3]) / 2
+            col, row = int(cx * grid), int(cy * grid)
+            red = int(imgs[img, 32 * row, 32 * col, 0])
+            best = 1.0 / (1.0 + (cfg.num_classes - 1) * np.exp(-logit))
+            want = best / (1.0 + np.exp(-(obj + red / 255.0)))
+            aw, ah = cfg.anchors[anchor]
+            require(abs(cx - (col + 0.5) / grid) < 1e-5
+                    and abs(cy - (row + 0.5) / grid) < 1e-5
+                    and abs(box[2] - box[0] - aw / grid) < 1e-5
+                    and abs(box[3] - box[1] - ah / grid) < 1e-5,
+                    f"{label}: box {box} is not anchor {anchor} on cell "
+                    f"({row}, {col})")
+            worst = max(worst, abs(float(score) - want))
+    require(worst < 1e-3, f"{label}: scores {worst:.3g} from the hand-"
+            "computed ones")
+    print(f"[{label}] hand-made head at threshold {cfg.conf_threshold}: "
+          f"num {got.num.tolist()}, classes "
+          f"{sorted(set(got.classes[got.valid].tolist()))}, each box the "
+          f"anchor's on its cell's centre, scores "
+          f"{got.scores.min():.5f}..{got.scores.max():.5f} within "
+          f"{worst:.2g} of the hand-computed ones")
+
+
 def family_phases(name, numbers, dev, kind, smi):
     """Phases 11-12 (yolov2) and 13 (yolov1): the f32 Detector at batch
     PARITY_BATCH on the card against the CPU port, with the decode kernel's
     launches counted around one forward, then bf16 serving at SERVE_BATCH
     with its split and the device time of the layers this family adds.
     ``numbers`` = (f32 phase label, bf16 phase label). Returns the decode
-    launches of the counted forward."""
+    launches of the counted forward. yolov2 also runs the hand-made head
+    (CRAFTED) at its own threshold of 0.5 beside the seeded weights."""
     from yolo_tensorflow_tpu_torch import config as C
     from yolo_tensorflow_tpu_torch.io import weights as W
-    from yolo_tensorflow_tpu_torch.models import engine, heads
+    from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.models import specs as S
     from yolo_tensorflow_tpu_torch.ops import layers as L
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
-    from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
     from yolo_tensorflow_tpu_torch.post import nms as NMS
     f32, bf16 = numbers
     size_bias, conf = REGION[name]
@@ -1032,13 +1244,14 @@ def family_phases(name, numbers, dev, kind, smi):
         gpu = Detector(name, path, device="cuda", conf_threshold=conf)
         gpu.detect_batch(imgs)                 # warm-up, outside the count
         torch.cuda.synchronize()
-        K.launches = 0
+        K.launches = NK.launches = 0
         got = gpu.detect_batch(imgs)           # f32, TF32 off in the network
         torch.cuda.synchronize()
         launches = K.launches
-        require(launches == want_launches,
+        require(launches == want_launches and NK.launches == 1,
                 f"{name}: the decode kernel launched {launches} times in one "
-                f"forward, expected {want_launches}")
+                f"forward (expected {want_launches}), NMS {NK.launches} "
+                "(expected 1)")
         cpu = Detector(name, path, device="cpu", conf_threshold=conf)
         t0 = time.perf_counter()
         want = NMS.fetch_detections(cpu.detect_batch(imgs))
@@ -1052,37 +1265,37 @@ def family_phases(name, numbers, dev, kind, smi):
               + f"; the CPU port took {cpu_s:.1f} s")
         del gpu, cpu
 
+        if name == "yolov2":
+            # the hand-made head, at the model's own threshold
+            crafted = os.path.join(tmp, f"{name}-crafted.weights")
+            W.save_darknet_weights(specs, size,
+                                   *crafted_region_params(cfg, specs),
+                                   crafted)
+            imgs = crafted_images(PARITY_BATCH, size)
+            gpu = Detector(name, crafted, device="cuda")
+            got = NMS.fetch_detections(gpu.detect_batch(imgs))
+            cpu = Detector(name, crafted, device="cpu")
+            check_detections(f"{f32} hand-made", gpu, imgs, got,
+                             NMS.fetch_detections(cpu.detect_batch(imgs)),
+                             cfg, kind, cfg.conf_threshold)
+            check_crafted(f"{f32} hand-made", got, imgs, cfg)
+            del gpu, cpu
+
         torch.backends.cudnn.benchmark = True
         det = Detector(name, path, device="cuda",
                        compute_dtype=torch.bfloat16, conf_threshold=conf)
     x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, size, size, 3),
                                      dtype=np.uint8), device=dev)
     torch.cuda.reset_peak_memory_stats()
-    step_ms, rates, out = serve_rate(det, x)
+    step_ms, rates, out = serve_rate(lambda: det.detect_batch(x), len(x))
     out = NMS.fetch_detections(out)
     require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
             f"{name} bf16 detections empty or not finite")
+    counted_forward(bf16, lambda: det.detect_batch(x),
+                    decode=want_launches, nms=1)
+    net_ms, dec_ms, nms_ms, _ = step_split(det, x, cfg, conf)
+    how = "plain PyTorch" if cfg.head == 1 else "the kernel"
     with torch.inference_mode():
-        xn = normalize_images(x, cfg, torch.bfloat16)
-        net_ms = cuda_ms(lambda: det.network(xn), iters=5)
-        feats = det.network(xn)
-        if cfg.head == 1:
-            def decode():
-                boxes, scores, labels = heads.decode_scored(feats, cfg)
-                return heads.xywh_to_xyxy(boxes), scores, labels
-            how = "plain PyTorch"
-        else:
-            def decode():
-                return K.decode_fused(feats, cfg)
-            how = "the kernel, host kept ahead"
-        dec_ms = cuda_ms(decode, iters=20, ahead_cycles=20_000_000)
-        boxes, scores, labels = decode()
-        nms_ms = statistics.median(
-            wall_ms(lambda: NMS.batched_nms_scored(
-                boxes, scores, labels, conf_threshold=conf,
-                iou_threshold=cfg.iou_threshold,
-                max_detections=cfg.max_detections), 5)
-            for _ in range(3))
         # the layers this family adds, at the shapes the forward gives them
         shapes = engine.infer_shapes(specs, (SERVE_BATCH, size, size, 3))
         extra = []
@@ -1108,17 +1321,347 @@ def family_phases(name, numbers, dev, kind, smi):
           f"on the card: {statistics.median(rates):.1f} img/s median of 3 x "
           f"5 steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
           f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode {dec_ms:.4f} ms "
-          f"({how}), NMS {nms_ms:.2f} ms = {100 * nms_ms / step:.1f}% of "
-          f"the step; {'; '.join(extra)}; peak memory "
+          f"({how}), NMS {nms_ms:.4f} ms (device: top-k + the kernel), the "
+          f"rest {step - net_ms - dec_ms - nms_ms:.2f} ms; "
+          f"{'; '.join(extra)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean num "
           f"{out.num.mean():.1f}; on {smi}")
     return launches
+
+
+def nms_odd_case(name, rng, dev):
+    """(boxes, scores, labels) on the card and the NMS options of one odd
+    case of NMS_ODD; scores distinct (tests/test_torch_nms.py builds the
+    same cases)."""
+    def random(batch=3, n=300):
+        centers = rng.uniform(0.4, 0.6, (batch, n, 2))    # heavy overlap
+        half = rng.uniform(0.05, 0.2, (batch, n, 2))
+        boxes = np.concatenate([centers - half, centers + half], -1)
+        scores = rng.permutation(batch * n).reshape(batch, n) / (batch * n)
+        return boxes, scores, rng.integers(0, 4, (batch, n))
+
+    def fixed(boxes, scores):
+        return np.asarray([boxes]), np.asarray([scores]), np.zeros(
+            (1, len(scores)))
+
+    kw = {}
+    if name == "batch 1":
+        b, s, c = random(batch=1)
+    elif name == "K > N":
+        b, s, c = random(n=98)
+        kw = dict(num_candidates=256)
+    elif name == "D > K":
+        b, s, c = random()
+        kw = dict(num_candidates=8, max_detections=20)
+    elif name == "none active":
+        b, s, c = random()
+        s = s * 0.29
+    elif name == "all active":
+        b, s, c = random(n=64)
+        s = s + 0.5
+    elif name == "chain":
+        # A suppresses B (IoU 1/3), B would suppress C: A and C are kept
+        b, s, c = fixed([[0, 0, 2, 1], [1, 0, 3, 1], [2, 0, 4, 1],
+                         [5, 5, 6, 6]], [0.9, 0.8, 0.7, 0.6])
+        kw = dict(iou_threshold=0.3)
+    elif name == "IoU at the threshold":
+        # IoU exactly 0.5 is no overlap (> thr); 0.5 + 2**-10 is
+        b, s, c = fixed([[0, 0, 1, 1], [0, 0, 1, 0.5],
+                         [0, 0, 1, 0.5009765625], [0, 0, 1, 1]],
+                        [0.9, 0.8, 0.7, 0.6])
+        kw = dict(iou_threshold=0.5)
+    elif name == "degenerate":
+        b, s, c = random(n=64)
+        b[:, ::4, 2] = b[:, ::4, 0]                    # zero width
+        b[:, 1::4, 3] = b[:, 1::4, 1]                  # zero height
+        b[:, 2::4, [0, 2]] = b[:, 2::4, [2, 0]]        # inverted in x
+        b[:, 3::8, :] = 0.0                            # a point at 0
+    else:                                              # "K = 8" ...
+        k = int(name.split()[-1])
+        b, s, c = random(n=max(k, 1200) if k > 300 else 300)
+        kw = dict(num_candidates=k)
+    return ((torch.as_tensor(b, dtype=torch.float32, device=dev),
+             torch.as_tensor(s, dtype=torch.float32, device=dev),
+             torch.as_tensor(c, dtype=torch.int32, device=dev)),
+            dict(NMS_ODD_KW, **kw))
+
+
+def nms_check(label, candidates, kw):
+    """One batched_nms_scored (exactly one kernel launch) against
+    batched_nms_scored_plain on the same CUDA tensors: all five fields
+    exactly equal. Returns the kernel's Detections."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    before = NK.launches
+    got = NMS.batched_nms_scored(*candidates, **kw)
+    count = NK.launches - before
+    want = NMS.batched_nms_scored_plain(*candidates, **kw)
+    torch.cuda.synchronize()
+    require(count == 1, f"{label}: batched_nms_scored launched the NMS "
+            f"kernel {count} times, expected 1")
+    for field in NMS.Detections._fields:
+        require(torch.equal(getattr(got, field), getattr(want, field)),
+                f"{label}: kernel != plain in {field}")
+    return got
+
+
+def nms_ious(top, kw):
+    """IoUs the greedy walk of this data needs: for each of an image's
+    first D - 1 kept candidates, one with each later active candidate."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    boxes, scores, labels = top
+    keep = NK.greedy_keep_plain(
+        boxes, scores, labels, conf_threshold=kw["conf_threshold"],
+        iou_threshold=kw["iou_threshold"], class_aware=kw["class_aware"])
+    active = (scores > kw["conf_threshold"]).int()
+    later = active.flip(1).cumsum(1).flip(1) - active   # active j > i
+    walks = keep & (keep.int().cumsum(1) < kw["max_detections"])
+    return int((later * walks).sum()), int(active.sum()), int(keep.sum())
+
+
+def nms_kernel_phase(decoded, cfg, dev):
+    """Phase 14. The NMS kernel against its plain version at the main
+    path's shapes (phase 5's decode of yolov3-416, batch 64) and the odd
+    cases; times at the main path. Returns the kernel's JSON fields."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    boxes, scores, labels = decoded
+    batch, n = scores.shape
+    fields = None
+    for conf in (CONF, 0.05):
+        for aware in (False, True):
+            kw = dict(conf_threshold=conf, iou_threshold=cfg.iou_threshold,
+                      max_detections=cfg.max_detections, num_candidates=256,
+                      class_aware=aware)
+            got = nms_check(f"NMS B={batch} N={n} conf {conf} class-aware "
+                            f"{aware}", decoded, kw)
+            top = NMS.select_candidates(boxes, scores, labels,
+                                        conf_threshold=conf,
+                                        num_candidates=256)
+            sel_kw = {k: v for k, v in kw.items() if k != "num_candidates"}
+            topk_ms = cuda_ms(lambda: NMS.select_candidates(
+                boxes, scores, labels, conf_threshold=conf,
+                num_candidates=256), ahead_cycles=SPIN)
+            ms = cuda_ms(lambda: NK.greedy_select(*top, **sel_kw),
+                         ahead_cycles=SPIN)
+            plain_ms = statistics.median(
+                wall_ms(lambda: NK.greedy_select_plain(*top, **sel_kw), 3)
+                for _ in range(3))
+            whole_ms = wall_ms(lambda: NMS.batched_nms_scored_plain(
+                boxes, scores, labels, **kw), 3)
+            loop_ms = wall_ms(lambda: [NMS.batched_nms_scored_plain(
+                boxes[i:i + 1], scores[i:i + 1], labels[i:i + 1], **kw)
+                for i in range(batch)], 1)
+            ious, active, kept = nms_ious(top, kw)
+            k = top[1].shape[1]
+            d = cfg.max_detections
+            nbytes = batch * (k * 24 + d * 25 + 4)
+            bnd, by = bound_ms(nbytes, ious * NMS_FLOPS + batch * k * 3,
+                               F32_OPS_S)
+            print(f"[14 nms kernel] {MODEL}-{cfg.input_size} decode "
+                  f"B={batch} N={n} K={k} "
+                  f"D={d} conf {conf} class-aware {aware}: kernel == plain in "
+                  f"all five fields, 1 launch; {active} active candidates, "
+                  f"{kept} kept, num {got.num.sum().item()} in all; top-k + "
+                  f"gathers {topk_ms:.4f} ms, kernel {ms:.4f} ms (device, "
+                  f"host kept ahead); bound {bnd:.6f} ms ({by}: {nbytes} bytes, "
+                  f"{ious} IoUs walked, K^2/2 = {batch * k * k // 2} at "
+                  f"most); plain greedy step {plain_ms:.2f} ms, plain top-k "
+                  f"+ greedy {whole_ms:.2f} ms, the former per-image loop "
+                  f"{loop_ms:.1f} ms (host clock, they sync)")
+            if conf == CONF and not aware:
+                fields = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                          "bound_by": by, "library_ms": None}
+    rng = np.random.default_rng(SEED + 14)
+    cases = 0
+    for name in NMS_ODD:
+        for aware in (False, True):
+            candidates, kw = nms_odd_case(name, rng, dev)
+            got = nms_check(f"odd NMS case {name!r} class-aware {aware}",
+                            candidates, dict(kw, class_aware=aware))
+            if name == "chain":
+                require(got.num.tolist() == [3], "chain: C was not kept")
+            if name == "IoU at the threshold":
+                require(got.num.tolist() == [2], "IoU at the threshold: "
+                        f"num {got.num.tolist()}, expected 2")
+            cases += 1
+    big = NK.shared_bytes(NMS_BIG_K, NMS_ODD_KW["max_detections"])
+    candidates, kw = nms_odd_case(f"K = {NMS_BIG_K}", rng, dev)
+    nms_check(f"NMS K = {NMS_BIG_K} (dynamic shared memory above 48 KB)",
+              candidates, kw)
+    print(f"[14 nms kernel] {cases} odd cases ({', '.join(NMS_ODD)}; each "
+          f"class-aware off and on) and K = {NMS_BIG_K} ({big} bytes of "
+          "shared memory): one launch each, equal to plain in all five "
+          "fields")
+    return {"max_abs_err": 0.0, **fields}
+
+
+def fused_check(label, det, cpu, canvas, sizes, got, want):
+    """Fused-letterbox Detections of the card against the CPU port's, per
+    image: num, classes and valid equal, pixel boxes and scores within
+    FUSED_TOL, unless the image's active top-256 scores hold exact ties
+    (then the comparison would depend on tie order: such an image is held
+    only to finite boxes inside it). The letterbox itself within
+    LETTERBOX_TOL of the CPU port's. Returns max |err| of boxes."""
+    from yolo_tensorflow_tpu_torch.models import heads
+    from yolo_tensorflow_tpu_torch.ops import preprocess as P
+    from yolo_tensorflow_tpu_torch.pipeline import normalization_fold
+    cfg = det.cfg
+    rescale, offset = normalization_fold(cfg)
+    lb = [P.letterbox_device_batch(torch.as_tensor(canvas, device=d),
+                                   torch.as_tensor(sizes, device=d),
+                                   cfg.input_size, rescale=rescale,
+                                   offset=offset)
+          for d in (det.device, cpu.device)]
+    lb_err = (lb[0].cpu() - lb[1]).abs().max().item()
+    lb_diff = int((lb[0].cpu() != lb[1]).sum())
+    require(lb_err <= LETTERBOX_TOL, f"{label}: letterbox card vs CPU "
+            f"{lb_err:.3g}")
+    with torch.inference_mode():
+        scores = heads.decode_scored(det.network(lb[0]), cfg)[1]
+    top = torch.topk(scores, min(256, scores.shape[1]), dim=1).values
+    err, compared = 0.0, []
+    for i, row in enumerate(top):
+        active = row[row > cfg.conf_threshold]
+        h, w = sizes[i]
+        require(np.isfinite(got.boxes[i]).all()
+                and (got.boxes[i][:, [0, 2]] <= w).all()
+                and (got.boxes[i][:, [1, 3]] <= h).all()
+                and (got.boxes[i] >= 0).all(),
+                f"{label}: image {i} boxes not finite or outside the image")
+        if torch.unique(active).numel() < active.numel():
+            print(f"[{label}] image {i} ({h}x{w}): exact ties among its "
+                  f"{active.numel()} active top scores; num {got.num[i]} on "
+                  f"the card, {want.num[i]} on the CPU; boxes finite and "
+                  "inside the image")
+            continue
+        compared.append(i)
+        for name in ("num", "classes", "valid"):
+            require(np.array_equal(getattr(got, name)[i],
+                                   getattr(want, name)[i]),
+                    f"{label}: image {i}: card and CPU {name} differ")
+        for name in ("boxes", "scores"):
+            np.testing.assert_allclose(getattr(got, name)[i],
+                                       getattr(want, name)[i], **FUSED_TOL)
+        err = max(err, float(np.abs(got.boxes[i] - want.boxes[i]).max()))
+    require(compared and sum(got.num[i] for i in compared) > 0,
+            f"{label}: no image with detections to compare")
+    print(f"[{label}] canvas {canvas.shape[1]}, images (h, w) "
+          f"{[tuple(v) for v in sizes.tolist()]}: letterbox card vs CPU max "
+          f"|err| {lb_err:.3g} ({lb_diff} values differ); Detections of "
+          f"images {compared} equal to the CPU port (num {got.num.tolist()}), "
+          f"max |err| of pixel boxes {err:.3g} (tol {FUSED_TOL})")
+    return err
+
+
+def fused_canvases(rng, side, sizes):
+    canvas = np.zeros((len(sizes), side, side, 3), np.uint8)
+    for i, (h, w) in enumerate(sizes):
+        canvas[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return canvas, np.asarray(sizes, np.int32)
+
+
+def letterbox_phase(cfg, path, qparams, n_int8, dev, smi):
+    """Phase 15, the fused letterbox: f32 against the CPU port, bf16 serving
+    at SERVE_BATCH with its split, one int8 bf16 step."""
+    from yolo_tensorflow_tpu_torch.ops import preprocess as P
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.pipeline import (Detector,
+                                                    normalization_fold)
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    rng = np.random.default_rng(SEED + 15)
+    torch.backends.cudnn.benchmark = False
+    gpu = Detector(MODEL, path, device="cuda", conf_threshold=CONF,
+                   letterbox=True, fused=True)
+    cpu = Detector(MODEL, path, device="cpu", conf_threshold=CONF,
+                   letterbox=True, fused=True)
+    for side, sizes in LETTERBOX_PARITY:
+        canvas, sz = fused_canvases(rng, side, sizes)
+        got = NMS.fetch_detections(gpu.detect_batch_fused(canvas, sz))
+        want = NMS.fetch_detections(cpu.detect_batch_fused(canvas, sz))
+        fused_check("15 fused f32", gpu, cpu, canvas, sz, got, want)
+    del gpu, cpu
+
+    torch.backends.cudnn.benchmark = True
+    side, (h, w) = LETTERBOX_SERVE
+    canvas, sz = fused_canvases(rng, side, [(h, w)] * SERVE_BATCH)
+    canvas = torch.as_tensor(canvas, device=dev)
+    sz = torch.as_tensor(sz, device=dev)
+    det = Detector(MODEL, path, device="cuda", compute_dtype=torch.bfloat16,
+                   conf_threshold=CONF, letterbox=True, fused=True)
+    require(det.letterbox_dtype == torch.bfloat16,
+            "bf16 serving did not default to the bf16 letterbox")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, rates, out = serve_rate(
+        lambda: det.detect_batch_fused(canvas, sz), SERVE_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = NMS.fetch_detections(out)
+    require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
+            "fused bf16 detections empty or not finite")
+    counted_forward("15 fused bf16", lambda: det.detect_batch_fused(
+        canvas, sz), decode=1, nms=1)
+    rescale, offset = normalization_fold(cfg)
+    size = cfg.input_size
+    with torch.inference_mode():
+        def letterbox():
+            return P.letterbox_device_batch(
+                canvas, sz, size, compute_dtype=torch.bfloat16,
+                rescale=rescale, offset=offset)
+        lb_ms = cuda_ms(letterbox, iters=10)
+        x = letterbox().to(torch.bfloat16)
+        net_ms = cuda_ms(lambda: det.network(x), iters=5)
+        feats = det.network(x)
+        dec_ms = cuda_ms(lambda: K.decode_fused(feats, cfg),
+                         ahead_cycles=SPIN)
+        decoded = K.decode_fused(feats, cfg)
+        nms_ms = cuda_ms(lambda: NMS.batched_nms_scored(
+            *decoded, conf_threshold=CONF, iou_threshold=cfg.iou_threshold,
+            max_detections=cfg.max_detections), ahead_cycles=SPIN)
+        dets = NMS.batched_nms_scored(
+            *decoded, conf_threshold=CONF, iou_threshold=cfg.iou_threshold,
+            max_detections=cfg.max_detections)
+        unmap_ms = cuda_ms(lambda: P.unmap_boxes_device(
+            dets.boxes, sz[:, 0], sz[:, 1], size), ahead_cycles=SPIN)
+    step = statistics.median(step_ms)
+    parts = lb_ms + net_ms + dec_ms + nms_ms + unmap_ms
+    print(f"[15 fused bf16] detect_batch_fused B={SERVE_BATCH}, {h}x{w} "
+          f"frames in {side}^2 canvases on the card, bf16 letterbox: "
+          f"{statistics.median(rates):.1f} img/s median of 3 x 5 steps "
+          f"(spread {min(rates):.1f}..{max(rates):.1f}), step {step:.2f} ms; "
+          f"letterbox {lb_ms:.3f} + backbone {net_ms:.2f} + decode "
+          f"{dec_ms:.4f} + NMS {nms_ms:.4f} + unmap {unmap_ms:.4f} = "
+          f"{parts:.2f} ms (device), the rest {step - parts:.2f} ms; peak "
+          f"memory {peak:.2f} GiB; mean num {out.num.mean():.1f}; on {smi}")
+    del det
+
+    det = Detector(MODEL, params=qparams, device="cuda",
+                   compute_dtype=torch.bfloat16, conf_threshold=CONF,
+                   letterbox=True, fused=True)
+    require(det.letterbox_dtype == torch.bfloat16,
+            "int8 params did not default to the bf16 letterbox")
+    det.detect_batch_fused(canvas, sz)          # warm-up
+    out = NMS.fetch_detections(counted_forward(
+        "15 fused int8 bf16", lambda: det.detect_batch_fused(canvas, sz),
+        int8=n_int8, decode=1, nms=1))
+    require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
+            "fused int8 detections empty or not finite")
+    ms = wall_ms(lambda: det.detect_batch_fused(canvas, sz), 3)
+    print(f"[15 fused int8 bf16] B={SERVE_BATCH}: the bf16 letterbox (the "
+          f"default for int8 params) into the int8 network, {ms:.2f} ms a "
+          f"step over 3 steps; mean num {out.num.mean():.1f}")
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    try:
+        import yolo_tensorflow_tpu_torch  # noqa: F401
+    except ModuleNotFoundError:
+        print("chip_smoke: the package yolo_tensorflow_tpu_torch is not "
+              "beside this script; run it from the repository's root",
+              file=sys.stderr)
         return 1
     from yolo_tensorflow_tpu_torch import config as C
     from yolo_tensorflow_tpu_torch.io import weights as W
@@ -1127,7 +1670,8 @@ def main():
     from yolo_tensorflow_tpu_torch.ops import quant as Q
     from yolo_tensorflow_tpu_torch.ops.kernels import build
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
-    from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
     from yolo_tensorflow_tpu_torch.post import nms as NMS
 
     # 1. device
@@ -1167,18 +1711,20 @@ def main():
         gpu = Detector(MODEL, path, device="cuda", conf_threshold=CONF)
         gpu.detect_batch(imgs)                 # warm-up, outside the count
         torch.cuda.synchronize()
-        K.launches = 0
+        K.launches = NK.launches = 0
         got = gpu.detect_batch(imgs)           # f32, TF32 off in the network
         torch.cuda.synchronize()
-        launches = K.launches
-        require(launches == 1,
-                f"decode kernel launched {launches} times in the main path, "
-                "expected one launch for the three head scales")
+        launches, nms_launches = K.launches, NK.launches
+        require(launches == nms_launches == 1,
+                f"the main path launched the decode kernel {launches} times "
+                f"and NMS {nms_launches} times, expected one each (one "
+                "decode launch for the three head scales)")
         cpu = Detector(MODEL, path, device="cpu", conf_threshold=CONF)
         check_detections("4 f32", gpu, imgs, NMS.fetch_detections(got),
                          NMS.fetch_detections(cpu.detect_batch(imgs)), cfg,
                          kind)
-        print(f"[4 f32] decode kernel launches {launches}")
+        print(f"[4 f32] decode kernel launches {launches}, NMS kernel "
+              f"launches {nms_launches}")
         del gpu, cpu
 
         # 5. main path, bf16 serving
@@ -1189,34 +1735,25 @@ def main():
                                                   cfg.input_size, 3),
                                          dtype=np.uint8), device=dev)
         torch.cuda.reset_peak_memory_stats()
-        step_ms, rates, out = serve_rate(det, x)
+        step_ms, rates, out = serve_rate(lambda: det.detect_batch(x), len(x))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out = NMS.fetch_detections(out)
         require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
                 "bf16 detections empty or not finite")
-        with torch.inference_mode():
-            xn = normalize_images(x, cfg, torch.bfloat16)
-            net_ms = cuda_ms(lambda: det.network(xn), iters=5)
-            feats = det.network(xn)
-            dec_ms = cuda_ms(lambda: K.decode_fused(feats, cfg),
-                             ahead_cycles=20_000_000)
-            boxes, scores, labels = K.decode_fused(feats, cfg)
-            nms_ms = statistics.median(
-                wall_ms(lambda: NMS.batched_nms_scored(
-                    boxes, scores, labels, conf_threshold=CONF,
-                    iou_threshold=cfg.iou_threshold,
-                    max_detections=cfg.max_detections), 5)
-                for _ in range(3))
+        counted_forward("5 bf16", lambda: det.detect_batch(x), decode=1,
+                        nms=1)
+        net_ms, dec_ms, nms_ms, decoded = step_split(det, x, cfg, CONF)
         step = statistics.median(step_ms)
         float_rate = statistics.median(rates)
         print(f"[5 bf16] detect_batch B={SERVE_BATCH} at {cfg.input_size}, "
               f"images on the card: {float_rate:.1f} img/s median of 3 x 5 "
               f"steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
               f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode "
-              f"{dec_ms:.4f} ms, NMS {nms_ms:.2f} ms = "
-              f"{100 * nms_ms / step:.1f}% of the step; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"mean num {out.num.mean():.1f}; on {smi}")
-        del det, feats, boxes, scores, labels
+              f"{dec_ms:.4f} ms, NMS {nms_ms:.4f} ms (device: top-k + the "
+              f"kernel), the rest {step - net_ms - dec_ms - nms_ms:.2f} ms; "
+              f"peak memory {peak:.2f} GiB; mean num {out.num.mean():.1f}; "
+              f"on {smi}")
+        del det
 
         # 6. int8 conv kernel vs plain, at the shapes the int8 path runs
         convs = {i for i, sp in enumerate(specs) if isinstance(sp, S.Conv)}
@@ -1224,34 +1761,41 @@ def main():
             int8_shapes(specs, cfg, convs - Q.head_conv_layers(specs)), dev)
 
         # 7. the int8 main path
-        int8_launches = int8_path_phase(specs, cfg, path, imgs, x, dev,
-                                        float_rate, kind)
-    del x
+        int8_launches, qparams = int8_path_phase(specs, cfg, path, imgs, x,
+                                                 dev, float_rate, kind)
+        del x
 
-    # 8. conv_bnstat kernel vs plain, at the shapes training runs
-    bnstat_fields = bnstat_kernel_phase(specs, cfg, dev)
+        # 8. conv_bnstat kernel vs plain, at the shapes training runs
+        bnstat_fields = bnstat_kernel_phase(specs, cfg, dev)
 
-    # 9. the f32 training path against the CPU port
-    n_fused = sum(bnstat_shapes(specs, cfg).values())
-    params, stats = engine.init_params(specs, cfg.input_size, SEED,
-                                       obj_bias=OBJ_BIAS)
-    torch.backends.cudnn.benchmark = False
-    train_parity_phase(cfg, specs, params, stats, n_fused, dev)
+        # 9. the f32 training path against the CPU port
+        n_fused = sum(bnstat_shapes(specs, cfg).values())
+        params, stats = engine.init_params(specs, cfg.input_size, SEED,
+                                           obj_bias=OBJ_BIAS)
+        torch.backends.cudnn.benchmark = False
+        train_parity_phase(cfg, specs, params, stats, n_fused, dev)
 
-    # 10. the bf16 training path
-    torch.backends.cudnn.benchmark = True
-    bnstat_launches = train_bf16_phase(cfg, specs, params, stats, dev,
-                                       n_fused, smi)
+        # 10. the bf16 training path
+        torch.backends.cudnn.benchmark = True
+        bnstat_launches = train_bf16_phase(cfg, specs, params, stats, dev,
+                                           n_fused, smi)
+        del params, stats
 
-    del params, stats
+        # 11-12. yolov2-416: the region head on its real path; 13. yolov1
+        v2_launches = family_phases("yolov2", ("11 yolov2 f32",
+                                               "12 yolov2 bf16"), dev, kind,
+                                    smi)
+        family_phases("yolov1", ("13 yolov1 f32", "13 yolov1 bf16"), dev,
+                      kind, smi)
+        require(launches == v2_launches == 1, "decode launches per forward: "
+                f"yolov3 {launches}, yolov2 {v2_launches}, expected 1 each")
 
-    # 11-12. yolov2-416: the region head on its real path; 13. yolov1-448
-    v2_launches = family_phases("yolov2", ("11 yolov2 f32", "12 yolov2 bf16"),
-                                dev, kind, smi)
-    family_phases("yolov1", ("13 yolov1 f32", "13 yolov1 bf16"), dev, kind,
-                  smi)
-    require(launches == v2_launches == 1, "decode launches per forward: "
-            f"yolov3 {launches}, yolov2 {v2_launches}, expected 1 each")
+        # 14. the NMS kernel vs plain at phase 5's decode and odd cases
+        nms_fields = nms_kernel_phase(decoded, cfg, dev)
+        del decoded
+
+        # 15. the fused letterbox
+        letterbox_phase(cfg, path, qparams, int8_launches, dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",
@@ -1265,7 +1809,11 @@ def main():
         "name": "conv3x3_bnstat", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/conv_bnstat.cu",
         "replaces": "tools/probe_conv_bnstat.py:47",
-        "launches": bnstat_launches, **bnstat_fields}]}))
+        "launches": bnstat_launches, **bnstat_fields}, {
+        "name": "greedy_nms", "route": "cuda",
+        "source": "yolo_tensorflow_tpu_torch/csrc/nms.cu",
+        "replaces": "yolo_tensorflow_tpu/post/nms.py:103",
+        "launches": nms_launches, **nms_fields}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

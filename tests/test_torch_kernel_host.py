@@ -3,7 +3,7 @@ conv's quantize prologue against the JAX package's, the plain int8 conv as
 the sum of its parts, which kernel instance and tile each conv takes, the
 decode kernel's tile plan and launch arguments, and the build's bookkeeping.
 The CUDA kernels themselves are held to their plain versions on the card by
-chip_smoke.py (phases 3, 6 and 8).
+chip_smoke.py (phases 3, 6, 8 and 14).
 
 - ``quantize_act_plain`` equals, bit for bit, the int8 tensor that
   yolo_tensorflow_tpu/ops/quant.conv2d_int8 hands to its conv (captured at
@@ -16,6 +16,9 @@ chip_smoke.py (phases 3, 6 and 8).
 - ``decode.plan_tiles`` over the heads the port serves and odd ones: tile
   counts, first-tile indices, 16-byte alignment of every tile, the shared-
   memory budget; the limits the wrapper copies from ``csrc/decode.cu``.
+- ``nms.greedy_select``: the shared-memory limit on K it copies from
+  ``csrc/nms.cu`` and raises past, the devices and operands it refuses, and
+  its plain version on a CPU input.
 - ``build.library_path()`` changes when a ``.cuh`` header changes, and each
   ctypes signature has as many arguments as its ``extern "C"`` definition.
 """
@@ -38,6 +41,7 @@ from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as K
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as DK
 from yolo_tensorflow_tpu_torch.ops.kernels import igemm
+from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
 
 from torch_parity import model
 
@@ -360,3 +364,75 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take():
         launch(torch.zeros((1, 3, 3, 27)), n_anchors=2)
     with pytest.raises(ValueError, match="scales in one"):
         DK._launch([], 96, 4, *out)
+
+
+# ---------------------------------------------------------- the NMS kernel
+
+def test_nms_limits_match_the_source():
+    """The wrapper's copies of csrc/nms.cu's limits."""
+    text = (build.CSRC_DIR / "nms.cu").read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+        return eval(expr, {"__builtins__": {}})
+
+    assert NK.MAX_THREADS == const("kMaxThreads")
+    assert NK.MAX_SHARED_BYTES == const("kMaxSharedBytes")
+    assert NK.BYTES_PER_CANDIDATE == const("kBytesPerCandidate")
+
+
+@pytest.mark.parametrize("k,d", [(256, 20), (1024, 100), (9000, 20)])
+def test_nms_shared_memory_fits(k, d):
+    assert NK.shared_bytes(k, d) == 25 * k + 4 * d <= NK.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("k,d", [(9298, 1), (9295, 20), (20000, 20)])
+def test_nms_raises_past_the_shared_memory_limit(k, d):
+    with pytest.raises(ValueError, match=f"more than the {227 * 1024}"):
+        NK.shared_bytes(k, d)
+
+
+def _nms_candidates(device="cpu", b=2, k=8):
+    return (torch.zeros((b, k, 4), device=device),
+            torch.zeros((b, k), device=device),
+            torch.zeros((b, k), dtype=torch.int32, device=device))
+
+
+NMS_KW = dict(conf_threshold=0.5, iou_threshold=0.5, max_detections=4,
+              class_aware=False)
+
+
+def test_nms_wrapper_raises_on_other_devices():
+    with pytest.raises(ValueError, match="runs on cpu or cuda, not meta"):
+        NK.greedy_select(*_nms_candidates("meta"), **NMS_KW)
+
+
+def test_nms_wrapper_rejects_what_the_kernel_does_not_take():
+    """Checked on the host before any launch, so also without a card."""
+    boxes, scores, labels = _nms_candidates()
+    with pytest.raises(ValueError, match="int32 labels"):
+        NK.greedy_select(boxes, scores, labels.long(), **NMS_KW)
+    with pytest.raises(ValueError, match="f32 boxes"):
+        NK.greedy_select(boxes.double(), scores, labels, **NMS_KW)
+    with pytest.raises(ValueError, match=r"boxes \(B, K, 4\)"):
+        NK.greedy_select(boxes[:, :4], scores, labels, **NMS_KW)
+    with pytest.raises(ValueError, match="at least 1"):
+        NK.greedy_select(boxes, scores, labels,
+                         **dict(NMS_KW, max_detections=0))
+    with pytest.raises(ValueError, match="below -1"):
+        NK.greedy_select(boxes, scores, labels,
+                         **dict(NMS_KW, conf_threshold=-2.0))
+
+
+def test_nms_wrapper_on_cpu_is_the_plain_version(rng):
+    boxes = torch.from_numpy(rng.uniform(0, 1, (3, 16, 4)).astype(
+        np.float32)).sort(dim=-1).values
+    scores = torch.from_numpy(np.sort(rng.uniform(0, 1, (3, 16)))[:, ::-1]
+                              .astype(np.float32).copy())
+    labels = torch.from_numpy(rng.integers(0, 3, (3, 16)).astype(np.int32))
+    before = NK.launches
+    got = NK.greedy_select(boxes, scores, labels, **NMS_KW)
+    want = NK.greedy_select_plain(boxes, scores, labels, **NMS_KW)
+    assert NK.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -5,7 +5,11 @@ conv sums in different orders). The JAX side runs its default XLA decode,
 which tests/test_pallas_decode.py pins to its Pallas kernel. The region (v2:
 Reorg, softmax classes) and grid (v1: connected head, symmetric
 normalization, heads.decode_scored in place of the fused decode) families
-run narrow specs of their own through the same comparison.
+run narrow specs of their own through the same comparison. The fused
+letterbox path (``detect_batch_fused``, and ``detect`` through it) runs the
+narrow v3, v2 and v1 specs and int8 params on canvases of mixed image sizes
+against the JAX Detector's: boxes are then in pixels, held at atol 1e-3 as
+``detect``'s are.
 
 Int8 (w8a8) Detectors get the JAX package's quantized params through
 ``params_from_jax``: at f32 the same tolerances hold. At bf16 every conv is
@@ -28,10 +32,11 @@ from yolo_tensorflow_tpu.pipeline import Detector as JaxDetector
 from yolo_tensorflow_tpu_torch.io import weights as TW
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
 from yolo_tensorflow_tpu_torch.pipeline import Detector
 
-from torch_parity import (images, jax_int8_params, jax_model, model,
-                          write_weights)
+from torch_parity import (folded_params, images, jax_int8_params, jax_model,
+                          model, write_weights)
 
 SIZE = 64
 OPTS = dict(conf_threshold=0.3, num_candidates=64)
@@ -128,11 +133,14 @@ def test_cuda_detector_raises_without_gpu():
         Detector("yolov3-tiny", params={}, device="cuda")
 
 
-@pytest.mark.parametrize("option", ["letterbox", "fused", "tta", "mesh",
-                                    "donate"])
-def test_unported_options_raise(option):
+@pytest.mark.parametrize("options", [
+    {"letterbox": True},                    # the host letterbox (cv2)
+    {"letterbox": True, "fused": True, "tta": True},
+    {"tta": True}, {"mesh": True}, {"donate": True}],
+    ids=["letterbox", "fused", "tta", "mesh", "donate"])
+def test_unported_options_raise(options):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Detector("yolov3-tiny", params={}, device="cpu", **{option: True})
+        Detector("yolov3-tiny", params={}, device="cpu", **options)
 
 
 def test_needs_weights_or_params():
@@ -155,3 +163,96 @@ def test_detect_matches_jax(case):
         np.testing.assert_allclose(g["score"], w["score"], rtol=1e-4,
                                    atol=1e-5)
         np.testing.assert_allclose(g["box"], w["box"], rtol=1e-4, atol=1e-3)
+
+
+# ------------------------------------------------------ the fused letterbox
+
+CANVAS = 128
+# mixed image sizes in one canvas bucket: wide, tall, filling the canvas,
+# odd pads (a 1x1 image is a flat input, whose equal scores tie: the
+# letterbox tests cover it)
+FUSED_SIZES = [(40, 100), (100, 40), (128, 128), (37, 91)]
+PIXEL_TOL = dict(rtol=1e-4, atol=1e-3)
+# a lower threshold than OPTS's: every image of every narrow model detects
+FUSED_OPTS = dict(OPTS, conf_threshold=0.1)
+
+
+def _canvas(sizes, seed=7):
+    """Seeded images of the given sizes in zeroed canvases."""
+    rng = np.random.default_rng(seed)
+    canvas = np.zeros((len(sizes), CANVAS, CANVAS, 3), np.uint8)
+    for i, (h, w) in enumerate(sizes):
+        canvas[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return canvas, np.asarray(sizes, np.int32)
+
+
+@pytest.fixture(scope="module", params=["narrow", "narrow-v2", "narrow-v1",
+                                        "int8"])
+def fused_case(request):
+    """(port Detector kwargs, JAX Detector, canvas, sizes, JAX Detections)
+    of the fused letterbox path."""
+    name = request.param
+    if name == "int8":
+        cfg, specs, jcfg, jspecs, jparams = jax_int8_params("narrow", SIZE)
+    else:
+        cfg, specs = model(name, SIZE)
+        jcfg, jspecs = jax_model(name, SIZE)
+        jparams = folded_params(specs, SIZE)[1]
+    jax_det = JaxDetector(jcfg, params=jparams, specs=jspecs, letterbox=True,
+                          fused=True, **FUSED_OPTS)
+    canvas, sizes = _canvas(FUSED_SIZES)
+    want = jax_det.detect_batch_fused(canvas, sizes)
+    port = dict(model=cfg, params=TW.params_from_jax(jparams), specs=specs,
+                device="cpu", letterbox=True, fused=True, **FUSED_OPTS)
+    return port, jax_det, canvas, sizes, want
+
+
+@pytest.mark.parametrize("sizes_as", ["numpy", "tensor"])
+def test_detect_batch_fused_matches_jax(fused_case, sizes_as):
+    port, _, canvas, sizes, want = fused_case
+    det = Detector(**port)
+    if sizes_as == "tensor":
+        sizes = torch.as_tensor(sizes, dtype=torch.int64)
+    before = K.launches, NK.launches
+    got = det.detect_batch_fused(canvas, sizes)
+    assert (K.launches, NK.launches) == before
+    # boxes are in pixels of images up to 128 wide
+    _check_detections(got, want, **PIXEL_TOL)
+    assert (got.boxes[..., 2] <= torch.as_tensor(sizes)[:, 1, None]).all()
+
+
+def test_detect_fused_matches_jax(fused_case):
+    """detect() on the fused path: one image, letterboxed on the device
+    (no cv2), pixel boxes."""
+    port, jax_det, _, _, _ = fused_case
+    image = np.random.default_rng(5).integers(0, 256, (90, 70, 3),
+                                              dtype=np.uint8)
+    want = jax_det.detect(image)
+    got = Detector(**port).detect(image)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert (g["class_id"], g["class"]) == (w["class_id"], w["class"])
+        np.testing.assert_allclose(g["score"], w["score"], rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(g["box"], w["box"], **PIXEL_TOL)
+
+
+def test_fused_letterbox_dtype_defaults():
+    """bf16 letterbox where the model computes narrow, as in the TPU
+    package; f32 for f32 float params; an explicit choice stands."""
+    cfg, specs = model("narrow", SIZE)
+    params = folded_params(specs, SIZE)[0]
+    kw = dict(params=params, specs=specs, device="cpu", letterbox=True,
+              fused=True)
+    assert Detector(cfg, **kw).letterbox_dtype is None
+    assert Detector(cfg, compute_dtype=torch.bfloat16,
+                    **kw).letterbox_dtype == torch.bfloat16
+    assert Detector(cfg, compute_dtype=torch.bfloat16,
+                    letterbox_dtype=torch.float32,
+                    **kw).letterbox_dtype == torch.float32
+    qparams = TW.params_from_jax(jax_int8_params("narrow", SIZE)[-1])
+    assert Detector(cfg, **dict(kw, params=qparams)).letterbox_dtype == \
+        torch.bfloat16
+    with pytest.raises(ValueError, match="letterbox=True, fused=True"):
+        Detector(cfg, params=params, specs=specs,
+                 device="cpu").detect_batch_fused(*_canvas([(8, 8)]))
