@@ -17,7 +17,9 @@ failure is caught):
              batch 8 and bf16 at batch 64, and at the odd cases of
              DECODE_ODD (1 and 7 classes, a 1x1 grid, batch 1, scales whose
              rows are no multiple of the tile, a view off a 16-byte
-             boundary, alone and as the middle one of three scales); one
+             boundary, alone and as the middle one of three scales); the
+             sigmoid heads also in the bf16 scoring mode (score_dtype=
+             bf16: scores within one bf16 ulp); one
              launch per decode_fused; device times from CUDA
              events with the host kept ahead of the card, and the wrapper's
              host time beside them;
@@ -88,7 +90,28 @@ failure is caught):
              canvases of mixed image sizes, f32 against the CPU port (boxes
              in pixels), then bf16 serving of VGA frames in 768 canvases at
              batch 64 with the step split into letterbox, backbone, decode,
-             NMS and unmap, then one int8 step (the bf16 letterbox default).
+             NMS and unmap, then one int8 step (the bf16 letterbox default);
+ 16. tta:    Detector(tta=True) at f32 batch 2 against the CPU port: yolov3
+             in both tta_modes, yolov2 (13 columns: the darknet mode skips
+             the middle one), int8 params (72 int8 conv launches counted)
+             and the fused letterbox; bf16 batch-64 serving with its split
+             (backbone over the doubled batch, activate + flip-average,
+             decode, NMS);
+ 17. smoothing: detect_batch_smoothed(avg_frames=3) over 6 frames as
+             batches of 2 with the state carried on the card, against the
+             CPU port, for yolov3, yolov2 and yolov1; identical frames past
+             the warm-up against detect_batch; bf16 batch-64 serving;
+ 18. int8-act: the int8-in kernel entry (conv2d_int8_q: int8
+             activations in, requantized int8 or f32 out) against its plain
+             twin: exactly the int32 accumulator at the Pallas probe shapes
+             with integer inputs, int8 out equal and f32 out within 1 ulp
+             at every distinct quantized yolov3-416 conv at batch 2 and the
+             INT8_ODD cases; calibrate_outputs on the card;
+             make_int8_forward at batch 2 against the CPU port (the int8-in
+             entry launched for every quantized conv, the decode once, no
+             quantize pass); batch-64 img/s and backbone ms beside phase
+             7's mixed int8; per shape at batch 64 the entry's ms beside the
+             mixed kernel's, its plain ms and its bound.
 Then a JSON line describing each kernel, and last the JSON result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
@@ -147,9 +170,9 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)
 # JAX package at the same tolerance).
 PARITY_TOL = dict(rtol=1e-4, atol=1e-5)
 # int8 conv, kernel vs plain: the accumulator is exact in both. The f32
-# epilogue is one fma in the kernel and a float64 multiply-add rounded once
-# in the plain version, which differ only where that double rounding does;
-# the bf16 epilogue rounds after each step in both.
+# epilogue is one fma in the kernel and in the plain version
+# (conv_int8.fma_f32 rounds as fmaf does); the bf16 epilogue rounds after
+# each step in both. Measured 0 ulp; 1 is the stated bound.
 INT8_ULPS = 1
 # the two shapes tools/probe_int8_3x3.py and tools/probe_conv_bnstat.py
 # time their Pallas kernels at
@@ -171,6 +194,17 @@ INT8_ODD = ((3, 3, 1, 16, 40, 7, False), (2, 1, 1, 32, 20, 5, False),
             (2, 3, 1, 24, 36, 5, False), (2, 3, 1, 24, 72, 5, False),
             (2, 1, 1, 32, 64, 6, True), (2, 3, 2, 3, 16, 10, False),
             (2, 3, 1, 3, 20, 6, False))
+# bf16 scoring (score_dtype=bf16), decode kernel vs plain: scores that are
+# bf16 values, within one bf16 ulp (expf may round differently once)
+BF16_SCORE_ULPS = 1
+# phase 17: frames fed as batches of PARITY_BATCH with the state carried,
+# averaged over darknet's demo_frame = 3
+SMOOTH_FRAMES = 6
+SMOOTH_AVG = 3
+# the smoothing tails, card vs CPU: activated head outputs, the wh logits
+# unsquashed, after 75 float32 layers summed in another order (yolov3
+# measured 1.5e-5 at most on an H100)
+TAIL_TOL = dict(rtol=1e-4, atol=1e-4)
 # Odd conv_bnstat cases, (batch, H = W, Cin, Cout, unaligned input): as
 # above, with Cout on each side of every tile width
 BNSTAT_ODD = ((3, 7, 24, 40, False), (5, 1, 16, 20, False),
@@ -288,26 +322,42 @@ def counted_forward(label, step, **want):
     just before it and host syncs made errors during it
     (``torch.cuda.set_sync_debug_mode("error")``: a sync raises, and is not
     caught). ``want``: the launches expected of each counted wrapper
-    (decode, nms, int8). Returns the forward's output."""
-    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
-    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
-    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
-    wrappers = {"decode": K, "nms": NK, "int8": Q8}
+    (decode, nms, int8, int8_q: the int8-in entry). Returns the forward's
+    output."""
     torch.cuda.synchronize()
-    for module in wrappers.values():
-        module.launches = 0
+    reset_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = step()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    got = {name: wrappers[name].launches for name in want}
+    got = {name: count for name, count in counts().items() if name in want}
     require(got == want, f"{label}: one forward launched {got}, expected "
             f"{want}")
     print(f"[{label}] one forward, inputs on the card: no host sync under "
           f"set_sync_debug_mode('error'); launches {got}")
     return out
+
+
+def _wrappers():
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    return {"decode": (K, "launches"), "nms": (NK, "launches"),
+            "int8": (Q8, "launches"), "int8_q": (Q8, "launches_q")}
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    for module, attr in _wrappers().values():
+        setattr(module, attr, 0)
+
+
+def counts():
+    """{wrapper: launches since reset_counts()}."""
+    return {name: getattr(module, attr)
+            for name, (module, attr) in _wrappers().items()}
 
 
 def bound_ms(nbytes, ops, ops_s):
@@ -342,18 +392,22 @@ def unaligned(t):
     return view
 
 
-def check_detections(label, det, imgs, got, want, cfg, kind, conf=CONF):
+def check_detections(label, det, imgs, got, want, cfg, kind, conf=CONF,
+                     scores=None):
     """Card Detections (numpy) against the CPU port's: num, classes and
     valid equal, boxes and scores within PARITY_TOL, at least one detection
     per image, and no exactly tied score among the active ones (above
     ``conf``) of any image's top 256 (the comparison would then depend on
-    tie order). Returns max |err|."""
+    tie order). ``scores``: the card's scores before NMS, where they are not
+    ``det``'s plain decode (TTA, the int8-activation path). Returns max
+    |err|."""
     from yolo_tensorflow_tpu_torch.models import heads
     from yolo_tensorflow_tpu_torch.pipeline import normalize_images
-    with torch.inference_mode():
-        feats = det.network(normalize_images(
-            torch.as_tensor(imgs, device=det.device), cfg))
-        scores = heads.decode_scored(feats, cfg)[1]
+    if scores is None:
+        with torch.inference_mode():
+            feats = det.network(normalize_images(
+                torch.as_tensor(imgs, device=det.device), cfg))
+            scores = heads.decode_scored(feats, cfg)[1]
     k = min(256, scores.shape[1])
     top = torch.topk(scores, k, dim=1).values
     active = [row[row > conf] for row in top]
@@ -404,21 +458,32 @@ def off_boundary(feat):
     return view
 
 
-def decode_check(label, dets, cfg):
+def decode_check(label, dets, cfg, score_dtype=None):
     """One decode_fused (exactly one launch) against decode_plain within
-    KERNEL_TOL, labels exact. Returns (max |err|, outputs)."""
+    KERNEL_TOL, labels exact; in the bf16 scoring mode the scores within
+    BF16_SCORE_ULPS bf16 ulps. Returns (max |err|, outputs)."""
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
     before = K.launches
-    got = K.decode_fused(dets, cfg)
+    got = K.decode_fused(dets, cfg, score_dtype=score_dtype)
     count = K.launches - before
-    want = K.decode_plain(dets, cfg)
+    want = K.decode_plain(dets, cfg, score_dtype=score_dtype)
     torch.cuda.synchronize()
     require(count == 1, f"{label}: decode_fused launched {count} kernels, "
             "expected one for all scales")
     err = 0.0
-    for g, w in zip(got[:2], want[:2]):
-        torch.testing.assert_close(g, w, **KERNEL_TOL, msg=lambda m: f"{label}"
-                                   f": kernel != plain: {m}")
+    for i, (g, w) in enumerate(zip(got[:2], want[:2])):
+        if i == 1 and score_dtype == torch.bfloat16:
+            g16, w16 = g.to(torch.bfloat16), w.to(torch.bfloat16)
+            require(torch.equal(g16.float(), g) and torch.equal(w16.float(),
+                                                                w),
+                    f"{label}: bf16 scores are not bf16 values")
+            ulps = ulp_distance(g16, w16)
+            require(ulps <= BF16_SCORE_ULPS, f"{label}: bf16 scores {ulps} "
+                    "ulps from plain")
+        else:
+            torch.testing.assert_close(g, w, **KERNEL_TOL,
+                                       msg=lambda m: f"{label}: kernel != "
+                                       f"plain: {m}")
         err = max(err, (g - w).abs().max().item())
     require(torch.equal(got[2], want[2]), f"{label}: labels differ")
     return err, got
@@ -471,6 +536,20 @@ def decode_kernel_phase(dev):
             if name == MODEL and batch == SERVE_BATCH:
                 fields = {"ms": kernel_ms, "plain_ms": plain_ms,
                           "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            if cfg.head == 3:
+                # the bf16 scoring mode (score_dtype=bf16) on the same heads
+                bf16 = torch.bfloat16
+                err, _ = decode_check(label + " bf16 scores", dets, cfg, bf16)
+                max_err = max(max_err, err)
+                k16 = cuda_ms(lambda: K.decode_fused(dets, cfg, bf16),
+                              ahead_cycles=SPIN)
+                p16 = cuda_ms(lambda: K.decode_plain(dets, cfg, bf16))
+                same = (K.decode_fused(dets, cfg, bf16)[1]
+                        == K.decode_plain(dets, cfg, bf16)[1]).float().mean()
+                print(f"[3 kernel] {label} bf16 scoring mode: labels equal, "
+                      f"boxes within {KERNEL_TOL}, scores within "
+                      f"{BF16_SCORE_ULPS} bf16 ulp ({same.item():.6f} of them "
+                      f"equal); kernel {k16:.4f} ms, plain {p16:.4f} ms")
             del dets, got
 
     cases = 0
@@ -487,11 +566,16 @@ def decode_kernel_phase(dev):
                                     ((g, tuple(range(anchors))),))
                 label = (f"odd decode head {cfg.head} C={classes} G={g} "
                          f"A={anchors} B={batch} {str(dtype)[6:]}")
-                max_err = max(max_err, decode_check(label, dets, cfg)[0])
-                max_err = max(max_err, decode_check(
-                    label + " off a 16-byte boundary",
-                    [(off_boundary(dets[0][0]), dets[0][1])], cfg)[0])
-                cases += 2
+                off = [(off_boundary(dets[0][0]), dets[0][1])]
+                for sd in ((None, torch.bfloat16) if cfg.head == 3
+                           else (None,)):
+                    tag = " bf16 scores" if sd else ""
+                    max_err = max(max_err, decode_check(
+                        label + tag, dets, cfg, sd)[0])
+                    max_err = max(max_err, decode_check(
+                        label + tag + " off a 16-byte boundary", off, cfg,
+                        sd)[0])
+                    cases += 2
     # three scales in one launch, the middle one off a 16-byte boundary: the
     # element-wise fill beside 16-byte copies, each scale's last tile ragged
     cfg = dataclasses.replace(C.get_config("yolov3"),
@@ -505,7 +589,8 @@ def decode_kernel_phase(dev):
             cfg)[0])
         cases += 1
     print(f"[3 kernel] {cases} odd decode cases (classes, G, anchors, batch "
-          f"of {DECODE_ODD}; sigmoid and softmax, f32 and bf16, aligned and "
+          f"of {DECODE_ODD}; sigmoid (also in the bf16 scoring mode) and "
+          f"softmax, f32 and bf16, aligned and "
           f"one element off; and three scales {DECODE_ODD_SCALES} with the "
           f"middle one off): one launch each, equal to plain within "
           f"{KERNEL_TOL}, labels equal; max |err| over phase 3 {max_err:.3g}")
@@ -687,8 +772,8 @@ def int8_kernel_phase(shapes, dev):
 def step_split(det, x, cfg, conf):
     """Device ms of the parts of one serving forward of ``det`` on the
     uint8 images ``x``, from CUDA events with the host kept ahead of the
-    card for the short ones: (backbone, decode, NMS: top-k + gathers + the
-    kernel), and the decode's outputs."""
+    card for the short ones: (backbone, decode, NMS: candidate sort +
+    gathers + the kernel), and the decode's outputs."""
     from yolo_tensorflow_tpu_torch.models import heads
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
     from yolo_tensorflow_tpu_torch.pipeline import normalize_images
@@ -713,8 +798,9 @@ def step_split(det, x, cfg, conf):
 
 
 def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
-    """Phase 7. Returns the int8 conv launches of one forward, and the int8
-    params."""
+    """Phase 7. Returns the int8 conv launches of one forward, the int8
+    params, the calibration batches, and the bf16 batch-SERVE_BATCH img/s
+    and backbone ms."""
     from yolo_tensorflow_tpu_torch.io import weights as W
     from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.ops import quant as Q
@@ -801,7 +887,7 @@ def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
           f"{conv_ms:.2f} ms + the rest {net_ms - conv_ms:.2f} ms, decode "
           f"{dec_ms:.4f} ms, NMS {nms_ms:.4f} ms (device); peak memory "
           f"{peak:.2f} GiB; mean num {out.num.mean():.1f}")
-    return launches, qparams
+    return launches, qparams, calib, statistics.median(rates), net_ms
 
 
 def bnstat_shapes(specs, cfg):
@@ -1207,13 +1293,14 @@ def check_crafted(label, got, imgs, cfg):
           f"{worst:.2g} of the hand-computed ones")
 
 
-def family_phases(name, numbers, dev, kind, smi):
+def family_phases(name, numbers, dev, kind, smi, tmp):
     """Phases 11-12 (yolov2) and 13 (yolov1): the f32 Detector at batch
     PARITY_BATCH on the card against the CPU port, with the decode kernel's
     launches counted around one forward, then bf16 serving at SERVE_BATCH
     with its split and the device time of the layers this family adds.
     ``numbers`` = (f32 phase label, bf16 phase label). Returns the decode
-    launches of the counted forward. yolov2 also runs the hand-made head
+    launches of the counted forward and the path of the seeded .weights
+    file, written into ``tmp``. yolov2 also runs the hand-made head
     (CRAFTED) at its own threshold of 0.5 beside the seeded weights."""
     from yolo_tensorflow_tpu_torch import config as C
     from yolo_tensorflow_tpu_torch.io import weights as W
@@ -1230,60 +1317,59 @@ def family_phases(name, numbers, dev, kind, smi):
     specs = C.build_specs(cfg)
     size = cfg.input_size
     want_launches = 0 if cfg.head == 1 else 1
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, f"{name}-seed{SEED}.weights")
-        params, stats = engine.init_params(specs, size, SEED,
-                                           size_bias=size_bias)
-        W.save_darknet_weights(specs, size, params, stats, path)
-        mbytes = os.path.getsize(path) / 2 ** 20
-        del params, stats
-        rng = np.random.default_rng(SEED + 11)
-        imgs = rng.integers(0, 256, (PARITY_BATCH, size, size, 3),
-                            dtype=np.uint8)
-        torch.backends.cudnn.benchmark = False
-        gpu = Detector(name, path, device="cuda", conf_threshold=conf)
-        gpu.detect_batch(imgs)                 # warm-up, outside the count
-        torch.cuda.synchronize()
-        K.launches = NK.launches = 0
-        got = gpu.detect_batch(imgs)           # f32, TF32 off in the network
-        torch.cuda.synchronize()
-        launches = K.launches
-        require(launches == want_launches and NK.launches == 1,
-                f"{name}: the decode kernel launched {launches} times in one "
-                f"forward (expected {want_launches}), NMS {NK.launches} "
-                "(expected 1)")
-        cpu = Detector(name, path, device="cpu", conf_threshold=conf)
-        t0 = time.perf_counter()
-        want = NMS.fetch_detections(cpu.detect_batch(imgs))
-        cpu_s = time.perf_counter() - t0
-        check_detections(f32, gpu, imgs, NMS.fetch_detections(got), want, cfg,
-                         kind, conf)
-        print(f"[{f32}] {name}-{size} from a seeded {mbytes:.0f} MiB "
-              f".weights file: decode kernel launches {launches} "
-              + ("(the grid head decodes in plain PyTorch)" if cfg.head == 1
-                 else "(softmax classes, one launch)")
-              + f"; the CPU port took {cpu_s:.1f} s")
+    path = os.path.join(tmp, f"{name}-seed{SEED}.weights")
+    params, stats = engine.init_params(specs, size, SEED,
+                                       size_bias=size_bias)
+    W.save_darknet_weights(specs, size, params, stats, path)
+    mbytes = os.path.getsize(path) / 2 ** 20
+    del params, stats
+    rng = np.random.default_rng(SEED + 11)
+    imgs = rng.integers(0, 256, (PARITY_BATCH, size, size, 3),
+                        dtype=np.uint8)
+    torch.backends.cudnn.benchmark = False
+    gpu = Detector(name, path, device="cuda", conf_threshold=conf)
+    gpu.detect_batch(imgs)                 # warm-up, outside the count
+    torch.cuda.synchronize()
+    K.launches = NK.launches = 0
+    got = gpu.detect_batch(imgs)           # f32, TF32 off in the network
+    torch.cuda.synchronize()
+    launches = K.launches
+    require(launches == want_launches and NK.launches == 1,
+            f"{name}: the decode kernel launched {launches} times in one "
+            f"forward (expected {want_launches}), NMS {NK.launches} "
+            "(expected 1)")
+    cpu = Detector(name, path, device="cpu", conf_threshold=conf)
+    t0 = time.perf_counter()
+    want = NMS.fetch_detections(cpu.detect_batch(imgs))
+    cpu_s = time.perf_counter() - t0
+    check_detections(f32, gpu, imgs, NMS.fetch_detections(got), want, cfg,
+                     kind, conf)
+    print(f"[{f32}] {name}-{size} from a seeded {mbytes:.0f} MiB "
+          f".weights file: decode kernel launches {launches} "
+          + ("(the grid head decodes in plain PyTorch)" if cfg.head == 1
+             else "(softmax classes, one launch)")
+          + f"; the CPU port took {cpu_s:.1f} s")
+    del gpu, cpu
+
+    if name == "yolov2":
+        # the hand-made head, at the model's own threshold
+        crafted = os.path.join(tmp, f"{name}-crafted.weights")
+        W.save_darknet_weights(specs, size,
+                               *crafted_region_params(cfg, specs),
+                               crafted)
+        imgs = crafted_images(PARITY_BATCH, size)
+        gpu = Detector(name, crafted, device="cuda")
+        got = NMS.fetch_detections(gpu.detect_batch(imgs))
+        cpu = Detector(name, crafted, device="cpu")
+        check_detections(f"{f32} hand-made", gpu, imgs, got,
+                         NMS.fetch_detections(cpu.detect_batch(imgs)),
+                         cfg, kind, cfg.conf_threshold)
+        check_crafted(f"{f32} hand-made", got, imgs, cfg)
         del gpu, cpu
 
-        if name == "yolov2":
-            # the hand-made head, at the model's own threshold
-            crafted = os.path.join(tmp, f"{name}-crafted.weights")
-            W.save_darknet_weights(specs, size,
-                                   *crafted_region_params(cfg, specs),
-                                   crafted)
-            imgs = crafted_images(PARITY_BATCH, size)
-            gpu = Detector(name, crafted, device="cuda")
-            got = NMS.fetch_detections(gpu.detect_batch(imgs))
-            cpu = Detector(name, crafted, device="cpu")
-            check_detections(f"{f32} hand-made", gpu, imgs, got,
-                             NMS.fetch_detections(cpu.detect_batch(imgs)),
-                             cfg, kind, cfg.conf_threshold)
-            check_crafted(f"{f32} hand-made", got, imgs, cfg)
-            del gpu, cpu
-
-        torch.backends.cudnn.benchmark = True
-        det = Detector(name, path, device="cuda",
-                       compute_dtype=torch.bfloat16, conf_threshold=conf)
+    torch.backends.cudnn.benchmark = True
+    det = Detector(name, path, device="cuda",
+                   compute_dtype=torch.bfloat16, conf_threshold=conf)
     x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, size, size, 3),
                                      dtype=np.uint8), device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1321,12 +1407,13 @@ def family_phases(name, numbers, dev, kind, smi):
           f"on the card: {statistics.median(rates):.1f} img/s median of 3 x "
           f"5 steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
           f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode {dec_ms:.4f} ms "
-          f"({how}), NMS {nms_ms:.4f} ms (device: top-k + the kernel), the "
+          f"({how}), NMS {nms_ms:.4f} ms (device: candidate sort + the "
+          f"kernel), the "
           f"rest {step - net_ms - dec_ms - nms_ms:.2f} ms; "
           f"{'; '.join(extra)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean num "
           f"{out.num.mean():.1f}; on {smi}")
-    return launches
+    return launches, path
 
 
 def nms_odd_case(name, rng, dev):
@@ -1462,8 +1549,9 @@ def nms_kernel_phase(decoded, cfg, dev):
                   f"B={batch} N={n} K={k} "
                   f"D={d} conf {conf} class-aware {aware}: kernel == plain in "
                   f"all five fields, 1 launch; {active} active candidates, "
-                  f"{kept} kept, num {got.num.sum().item()} in all; top-k + "
-                  f"gathers {topk_ms:.4f} ms, kernel {ms:.4f} ms (device, "
+                  f"{kept} kept, num {got.num.sum().item()} in all; "
+                  f"candidate sort + gathers {topk_ms:.4f} ms, kernel "
+                  f"{ms:.4f} ms (device, "
                   f"host kept ahead); bound {bnd:.6f} ms ({by}: {nbytes} bytes, "
                   f"{ious} IoUs walked, K^2/2 = {batch * k * k // 2} at "
                   f"most); plain greedy step {plain_ms:.2f} ms, plain top-k "
@@ -1496,12 +1584,14 @@ def nms_kernel_phase(decoded, cfg, dev):
     return {"max_abs_err": 0.0, **fields}
 
 
-def fused_check(label, det, cpu, canvas, sizes, got, want):
+def fused_check(label, det, cpu, canvas, sizes, got, want, scores_fn=None):
     """Fused-letterbox Detections of the card against the CPU port's, per
     image: num, classes and valid equal, pixel boxes and scores within
     FUSED_TOL, unless the image's active top-256 scores hold exact ties
     (then the comparison would depend on tie order: such an image is held
-    only to finite boxes inside it). The letterbox itself within
+    only to finite boxes inside it). ``scores_fn``: the card's scores
+    before NMS of the letterboxed input, where they are not its plain
+    decode's (TTA). The letterbox itself within
     LETTERBOX_TOL of the CPU port's. Returns max |err| of boxes."""
     from yolo_tensorflow_tpu_torch.models import heads
     from yolo_tensorflow_tpu_torch.ops import preprocess as P
@@ -1517,8 +1607,11 @@ def fused_check(label, det, cpu, canvas, sizes, got, want):
     lb_diff = int((lb[0].cpu() != lb[1]).sum())
     require(lb_err <= LETTERBOX_TOL, f"{label}: letterbox card vs CPU "
             f"{lb_err:.3g}")
-    with torch.inference_mode():
-        scores = heads.decode_scored(det.network(lb[0]), cfg)[1]
+    if scores_fn is not None:           # the card's scores before NMS
+        scores = scores_fn(lb[0])
+    else:
+        with torch.inference_mode():
+            scores = heads.decode_scored(det.network(lb[0]), cfg)[1]
     top = torch.topk(scores, min(256, scores.shape[1]), dim=1).values
     err, compared = 0.0, []
     for i, row in enumerate(top):
@@ -1651,6 +1744,445 @@ def letterbox_phase(cfg, path, qparams, n_int8, dev, smi):
           f"step over 3 steps; mean num {out.num.mean():.1f}")
 
 
+def tta_scores(det, x_norm, mode):
+    """The scores a TTA Detector hands to NMS for normalized input (the
+    port's own pipeline.tta_decode): what the tie check reads."""
+    from yolo_tensorflow_tpu_torch.pipeline import tta_decode
+    with torch.inference_mode():
+        return tta_decode(det.network, x_norm.to(det.network.dtype), det.cfg,
+                          mode)[1]
+
+
+def tta_parity(label, name, source, imgs, mode, kind, conf, want):
+    """Detector(name, tta=True, tta_mode=mode) at float32 on the card
+    against the same on the CPU, ``source`` its weights path or params;
+    ``want``: the launches of one forward (counted after a warm-up)."""
+    from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    kw = dict(conf_threshold=conf, tta=True, tta_mode=mode, **source)
+    gpu = Detector(name, device="cuda", **kw)
+    gpu.detect_batch(imgs)                      # warm-up, outside the count
+    torch.cuda.synchronize()
+    reset_counts()
+    got = gpu.detect_batch(imgs)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if k in want}
+    require(launched == want, f"{label}: one forward launched {launched}, "
+            f"expected {want}")
+    cpu = Detector(name, device="cpu", **kw)
+    scores = tta_scores(gpu, normalize_images(
+        torch.as_tensor(imgs, device=gpu.device), gpu.cfg), mode)
+    check_detections(label, gpu, imgs, NMS.fetch_detections(got),
+                     NMS.fetch_detections(cpu.detect_batch(imgs)), gpu.cfg,
+                     kind, conf, scores=scores)
+    print(f"[{label}] tta_mode {mode!r}: one forward (a doubled batch of "
+          f"{2 * len(imgs)}) launched {launched}")
+
+
+def tta_phase(cfg, path, v2_path, qparams, n_int8, dev, kind, smi):
+    """Phase 16, flip-TTA: f32 parity of yolov3 in both modes, yolov2
+    (width 13: the darknet mode skips the middle column), int8 params and
+    the fused letterbox against the CPU port; bf16 serving at SERVE_BATCH
+    with its split."""
+    from yolo_tensorflow_tpu_torch.pipeline import (
+        Detector, activate_heads, decode_activated, flip_average,
+        normalize_images)
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    rng = np.random.default_rng(SEED + 16)
+    size = cfg.input_size
+    imgs = rng.integers(0, 256, (PARITY_BATCH, size, size, 3),
+                        dtype=np.uint8)
+    torch.backends.cudnn.benchmark = False
+    for mode in ("darknet", "corrected"):
+        tta_parity("16 tta f32", MODEL, dict(weights_path=path), imgs, mode,
+                   kind, CONF, dict(decode=0, nms=1))
+    v2_conf = REGION["yolov2"][1]
+    tta_parity("16 tta yolov2 f32", "yolov2", dict(weights_path=v2_path),
+               imgs, "darknet", kind, v2_conf, dict(decode=0, nms=1))
+    tta_parity("16 tta int8 f32", MODEL, dict(params=qparams), imgs,
+               "darknet", kind, CONF, dict(int8=n_int8, decode=0, nms=1))
+
+    # the fused letterbox: the letterboxed tensor is mirrored
+    side, sizes = LETTERBOX_PARITY[0]
+    canvas, sz = fused_canvases(rng, side, sizes)
+    kw = dict(conf_threshold=CONF, letterbox=True, fused=True, tta=True)
+    gpu = Detector(MODEL, path, device="cuda", **kw)
+    cpu = Detector(MODEL, path, device="cpu", **kw)
+    got = NMS.fetch_detections(gpu.detect_batch_fused(canvas, sz))
+    want = NMS.fetch_detections(cpu.detect_batch_fused(canvas, sz))
+    fused_check("16 tta fused f32", gpu, cpu, canvas, sz, got, want,
+                scores_fn=lambda x: tta_scores(gpu, x, "darknet"))
+    del gpu, cpu
+
+    torch.backends.cudnn.benchmark = True
+    det = Detector(MODEL, path, device="cuda", compute_dtype=torch.bfloat16,
+                   conf_threshold=CONF, tta=True)
+    x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, size, size, 3),
+                                     dtype=np.uint8), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, rates, out = serve_rate(lambda: det.detect_batch(x), len(x))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = NMS.fetch_detections(out)
+    require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
+            "bf16 TTA detections empty or not finite")
+    counted_forward("16 tta bf16", lambda: det.detect_batch(x), decode=0,
+                    nms=1)
+    with torch.inference_mode():
+        xn = normalize_images(x, cfg, torch.bfloat16)
+        x2 = torch.cat([xn, torch.flip(xn, dims=[3])]).contiguous(
+            memory_format=torch.channels_last)
+        net_ms = cuda_ms(lambda: det.network(x2), iters=5)
+        dets2 = det.network(x2)
+
+        def average():
+            return flip_average(activate_heads(dets2, cfg), SERVE_BATCH, cfg,
+                                "darknet")
+
+        avg_ms = cuda_ms(average, ahead_cycles=SPIN)
+        avgs = average()
+        specs = [d for _, d in dets2]
+        dec_ms = cuda_ms(lambda: decode_activated(avgs, specs, cfg),
+                         ahead_cycles=SPIN)
+        decoded = decode_activated(avgs, specs, cfg)
+        nms_ms = cuda_ms(lambda: NMS.batched_nms_scored(
+            *decoded, conf_threshold=CONF, iou_threshold=cfg.iou_threshold,
+            max_detections=cfg.max_detections), ahead_cycles=SPIN)
+    step = statistics.median(step_ms)
+    parts = net_ms + avg_ms + dec_ms + nms_ms
+    print(f"[16 tta bf16] detect_batch(tta=True) B={SERVE_BATCH} at {size}, "
+          f"images on the card: {statistics.median(rates):.1f} img/s median "
+          f"of 3 x 5 steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
+          f"{step:.2f} ms; backbone over the doubled batch {net_ms:.2f} + "
+          f"activate and flip-average {avg_ms:.4f} + decode {dec_ms:.4f} + "
+          f"NMS {nms_ms:.4f} = {parts:.2f} ms (device), the rest "
+          f"{step - parts:.2f} ms; peak memory {peak:.2f} GiB; mean num "
+          f"{out.num.mean():.1f}; on {smi}")
+
+
+def smooth_check(label, got, want):
+    """One smoothed call's Detections, card against CPU: num, classes and
+    valid equal, boxes and scores within PARITY_TOL."""
+    for name in ("num", "classes", "valid"):
+        require(np.array_equal(getattr(got, name), getattr(want, name)),
+                f"{label}: card and CPU {name} differ")
+    for name in ("boxes", "scores"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name),
+                                   **PARITY_TOL)
+    return float(np.abs(got.boxes - want.boxes).max())
+
+
+def smoothing_phase(cfg, paths, dev, smi):
+    """Phase 17, rolling-average smoothing (avg_frames SMOOTH_AVG):
+    SMOOTH_FRAMES frames as batches of PARITY_BATCH with the state carried,
+    card against the CPU port, for yolov3, yolov2 and yolov1; identical
+    frames after warm-up against detect_batch; bf16 serving at
+    SERVE_BATCH with the state carried."""
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    rng = np.random.default_rng(SEED + 17)
+    torch.backends.cudnn.benchmark = False
+    for name, path in paths.items():
+        conf = CONF if name == MODEL else REGION[name][1]
+        size = C.get_config(name).input_size
+        frames = rng.integers(0, 256, (SMOOTH_FRAMES, size, size, 3),
+                              dtype=np.uint8)
+        gpu = Detector(name, path, device="cuda", conf_threshold=conf)
+        cpu = Detector(name, path, device="cpu", conf_threshold=conf)
+        sg = sc = None
+        nums, err = [], 0.0
+        for j in range(0, SMOOTH_FRAMES, PARITY_BATCH):
+            got, sg = gpu.detect_batch_smoothed(
+                frames[j:j + PARITY_BATCH], sg, avg_frames=SMOOTH_AVG)
+            want, sc = cpu.detect_batch_smoothed(
+                frames[j:j + PARITY_BATCH], sc, avg_frames=SMOOTH_AVG)
+            got, want = NMS.fetch_detections(got), NMS.fetch_detections(want)
+            err = max(err, smooth_check(f"17 smoothing {name}", got, want))
+            nums += got.num.tolist()
+        require(all(t.device.type == "cuda" for t in sg),
+                f"{name}: the smoothing state left the card")
+        tail_err = max((g.cpu() - c).abs().max().item()
+                       for g, c in zip(sg, sc))
+        for g, c in zip(sg, sc):
+            torch.testing.assert_close(g.cpu(), c, **TAIL_TOL)
+        require(sum(nums[SMOOTH_AVG - 1:]) > 0,
+                f"{name}: no detections once the window is full")
+        # identical frames: once the window is full, the mean of equal
+        # activations is that activation to a rounding
+        same = np.stack([frames[0]] * (SMOOTH_AVG + 1))
+        plain = NMS.fetch_detections(gpu.detect_batch(same))
+        sm = NMS.fetch_detections(gpu.detect_batch_smoothed(
+            same, avg_frames=SMOOTH_AVG)[0])
+        b = SMOOTH_AVG
+        require(sm.num[b] == plain.num[b] and np.array_equal(
+            sm.classes[b], plain.classes[b]),
+            f"{name}: steady-state smoothing != detect_batch")
+        np.testing.assert_allclose(sm.boxes[b], plain.boxes[b], rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(sm.scores[b], plain.scores[b], rtol=1e-5)
+        print(f"[17 smoothing {name}] {SMOOTH_FRAMES} frames as batches of "
+              f"{PARITY_BATCH}, state carried on the card, avg_frames "
+              f"{SMOOTH_AVG}: Detections equal to the CPU port's (num "
+              f"{nums}), max |err| boxes {err:.3g}, tails {tail_err:.3g}; "
+              f"frame {b} of {b + 1} identical ones equals detect_batch "
+              f"(num {int(plain.num[b])})")
+        del gpu, cpu
+
+    torch.backends.cudnn.benchmark = True
+    det = Detector(MODEL, paths[MODEL], device="cuda",
+                   compute_dtype=torch.bfloat16, conf_threshold=CONF)
+    size = cfg.input_size
+    x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, size, size, 3),
+                                     dtype=np.uint8), device=dev)
+    state = [det.detect_batch_smoothed(x)[1]]
+
+    def step():
+        out, state[0] = det.detect_batch_smoothed(x, state[0])
+        return out
+
+    step_ms, rates, out = serve_rate(step, SERVE_BATCH)
+    out = NMS.fetch_detections(out)
+    require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
+            "bf16 smoothed detections empty or not finite")
+    counted_forward("17 smoothing bf16", step, decode=0, nms=1)
+    print(f"[17 smoothing bf16] detect_batch_smoothed B={SERVE_BATCH} at "
+          f"{size}, state carried: {statistics.median(rates):.1f} img/s "
+          f"median of 3 x 5 steps (spread {min(rates):.1f}.."
+          f"{max(rates):.1f}), step {statistics.median(step_ms):.2f} ms; "
+          f"mean num {out.num.mean():.1f}; on {smi}")
+
+
+def int8_q_operands(gen, dev, batch, k, cin, cout, h, integer=False):
+    """Seeded operands of one int8-in conv on the card: int8 xq, s_in, w_q,
+    s_w, b, s_out. ``integer``: xq in [-8, 8] and unit scales, zero bias,
+    no out scale: the float32 output is the int32 accumulator."""
+    lo = -8 if integer else -127
+    xq = torch.randint(lo, -lo + 1, (batch, cin, h, h), generator=gen,
+                       device=dev).to(torch.int8).contiguous(
+                           memory_format=torch.channels_last)
+    w_q = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                        device=dev).to(torch.int8).contiguous(
+                            memory_format=torch.channels_last)
+    if integer:
+        return (xq, 1.0, w_q, torch.ones(cout, device=dev),
+                torch.zeros(cout, device=dev), None)
+    s_w = (torch.rand(cout, generator=gen, device=dev) + 0.5) / 127
+    b = torch.randn(cout, generator=gen, device=dev)
+    return xq, 0.02, w_q, s_w, b, 0.9
+
+
+def int8_q_check(label, ops, stride, used):
+    """conv2d_int8_q against its plain twin on the same card tensors: the
+    int8 out equal, the float32 out (no out scale) within INT8_ULPS.
+    Returns (max |err| of the float32 out, its ulps)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    xq, s_in, w_q, s_w, b, s_out = ops
+    kw = dict(stride=stride, act="leaky")
+    got = Q8.conv2d_int8_q(xq, s_in, w_q, s_w, b, s_out=s_out, **kw)
+    want = Q8.conv2d_int8_q_plain(xq, s_in, w_q, s_w, b, s_out=s_out, **kw)
+    f_got = Q8.conv2d_int8_q(xq, s_in, w_q, s_w, b, **kw)
+    f_want = Q8.conv2d_int8_q_plain(xq, s_in, w_q, s_w, b, **kw)
+    torch.cuda.synchronize()
+    require(got.dtype == torch.int8 and torch.equal(got, want),
+            f"{label} {Q8.plan_q(xq, w_q)}: int8 out != plain "
+            f"({int((got != want).sum())} differ)")
+    ulps = ulp_distance(f_got, f_want)
+    require(f_got.dtype == torch.float32 and ulps <= INT8_ULPS,
+            f"{label} {Q8.plan_q(xq, w_q, False)}: float32 out {ulps} ulps "
+            "from plain")
+    used[Q8.plan_q(xq, w_q)] += 1
+    return (f_got - f_want).abs().max().item(), ulps
+
+
+def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
+                   mixed_rate, mixed_net_ms, kind, smi):
+    """Phase 18, the all-int8-activation path. Returns the int8-in
+    entry's launches in one forward and its JSON fields."""
+    from yolo_tensorflow_tpu_torch.io import weights as W
+    from yolo_tensorflow_tpu_torch.models import engine, heads
+    from yolo_tensorflow_tpu_torch.models import specs as S
+    from yolo_tensorflow_tpu_torch.ops import layers as L
+    from yolo_tensorflow_tpu_torch.ops import quant as Q
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    from yolo_tensorflow_tpu_torch.pipeline import normalize_images
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    used = collections.Counter()
+    for h, cin, cout in PROBE_SHAPES:
+        ops = int8_q_operands(gen, dev, KERNEL_BATCH, 3, cin, cout, h, True)
+        got = Q8.conv2d_int8_q(*ops[:5], s_out=ops[5])
+        acc = Q8.int8_accumulate(ops[0], ops[2], pad=1)
+        torch.cuda.synchronize()
+        require(acc.abs().max().item() < 2 ** 24
+                and torch.equal(got, acc.float()),
+                f"int8-in probe shape {h}^2 {cin}->{cout}: kernel != int32 "
+                "accumulator")
+        int8_q_check(f"int8-in probe shape {h}^2 {cin}->{cout}",
+                     int8_q_operands(gen, dev, KERNEL_BATCH, 3, cin, cout,
+                                     h), 1, used)
+    max_err, worst = 0.0, 0
+    cases = ([(PARITY_BATCH, k, stride, cin, cout, h, False)
+              for (k, stride, cin, cout, h) in sorted(shapes)]
+             + list(INT8_ODD))
+    for (batch, k, stride, cin, cout, h, off) in cases:
+        ops = list(int8_q_operands(gen, dev, batch, k, cin, cout, h))
+        if off:
+            ops[2] = unaligned(ops[2])
+        label = f"int8-in B={batch} k{k} s{stride} {cin}->{cout} at {h}^2"
+        err, ulps = int8_q_check(label, ops, stride, used)
+        max_err, worst = max(max_err, err), max(worst, ulps)
+        if off:           # and an input off a 16-byte boundary
+            ops[0] = unaligned(ops[0])
+            err, ulps = int8_q_check(label + " unaligned input", ops, stride,
+                                     used)
+            max_err, worst = max(max_err, err), max(worst, ulps)
+    print(f"[18 int8-act kernel] the int8-in entry against its plain twin: "
+          f"the Pallas probe shapes {PROBE_SHAPES} with integer inputs equal "
+          f"to the int32 accumulator; {len(shapes)} distinct quantized convs "
+          f"of {MODEL}-416 at B={PARITY_BATCH} and {len(INT8_ODD)} odd "
+          f"cases, leaky: int8 out equal, float32 out within {worst} ulp "
+          f"(limit {INT8_ULPS}), max |err| {max_err:.3g}; (instance, BN) "
+          f"taken: {dict(used)}")
+
+    # the shortcut's fused add on the card
+    t = torch.randint(-127, 128, (1 << 20,), generator=gen,
+                      device=dev).float()
+    o = torch.randn(1 << 20, generator=gen, device=dev)
+    fused = torch.add(o, t, alpha=0.0312345)
+    exact = Q8.fma_f32(t, torch.tensor(float(np.float32(0.0312345))), o)
+    add_same = int((fused == exact).sum())
+    print(f"[18 int8-act] torch.add(alpha=) on the card equals one fma in "
+          f"{add_same} of {t.numel()} elements (the shortcut's dequantize + "
+          "add; the CPU port and the TPU package's CPU program fuse it)")
+
+    folded, _ = W.load_darknet_weights(specs, cfg.input_size, path)
+    t0 = time.perf_counter()
+    outs = Q.calibrate_outputs(specs, folded, calib, cfg=cfg, device=dev)
+    cal_s = time.perf_counter() - t0
+    outs_cpu = Q.calibrate_outputs(specs, folded, calib[:1], cfg=cfg)
+    outs_gpu1 = Q.calibrate_outputs(specs, folded, calib[:1], cfg=cfg,
+                                    device=dev)
+    cal_err = max(abs(outs_gpu1[k] - outs_cpu[k]) / outs_cpu[k]
+                  for k in outs_cpu)
+    require(outs.keys() == outs_cpu.keys() and cal_err < 1e-4,
+            f"calibrate_outputs card vs CPU: relative difference {cal_err}")
+    print(f"[18 int8-act] calibrate_outputs on the card over "
+          f"{len(calib)} x {calib[0].shape[0]} seeded images: {len(outs)} "
+          f"scales in {cal_s:.1f} s; one batch card vs CPU within "
+          f"{cal_err:.2g} relative")
+
+    fwd = Q.make_int8_forward(cfg, specs, outs, conf_threshold=CONF)
+    gpu_params = Q.int8_params_to(qparams, dev)
+    cpu_params = Q.int8_params_to(qparams, "cpu")
+    n_q = sum(shapes.values())
+    x2 = torch.as_tensor(imgs, device=dev)
+    fwd(gpu_params, x2)                         # warm-up
+    got = NMS.fetch_detections(counted_forward(
+        "18 int8-act f32", lambda: fwd(gpu_params, x2), int8_q=n_q, int8=0,
+        decode=1, nms=1))
+    want = NMS.fetch_detections(fwd(cpu_params, torch.as_tensor(imgs)))
+    with torch.inference_mode():
+        xn = normalize_images(x2, cfg)
+        dets, layers = Q.apply_int8_layers(specs, gpu_params, outs, xn)
+        _, cpu_layers = Q.apply_int8_layers(specs, cpu_params, outs,
+                                            xn.cpu())
+        scores = heads.decode_scored(dets, cfg)[1]
+    diff = sum(int((g.cpu() != c).sum()) for (g, s), (c, _)
+               in zip(layers, cpu_layers) if s is not None)
+    total = sum(g.numel() for g, s in layers if s is not None)
+    check_detections("18 int8-act f32", None, imgs, got, want, cfg, kind,
+                     scores=scores)
+    print(f"[18 int8-act f32] make_int8_forward B={PARITY_BATCH}: "
+          f"Detections equal to the CPU port's; int8 activations card vs "
+          f"CPU: {diff} of {total} elements differ; one forward launched "
+          f"the int8-in conv {n_q} times, the decode and NMS once, the "
+          "mixed int8 conv (and its quantize pass) never")
+
+    rng = np.random.default_rng(SEED + 18)
+    size = cfg.input_size
+    x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, size, size, 3),
+                                     dtype=np.uint8), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, rates, out = serve_rate(lambda: fwd(gpu_params, x), SERVE_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = NMS.fetch_detections(out)
+    require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
+            "int8-activation detections empty or not finite")
+    counted_forward("18 int8-act serve", lambda: fwd(gpu_params, x),
+                    int8_q=n_q, int8=0, decode=1, nms=1)
+    with torch.inference_mode():
+        xn = normalize_images(x, cfg)
+        net_ms = cuda_ms(lambda: Q.apply_int8(specs, gpu_params, outs, xn),
+                         iters=5)
+        # the eager steps around the kernel: each shortcut's dequantize +
+        # add + requantize, and the float32 head convs
+        _, layers = Q.apply_int8_layers(specs, gpu_params, outs, xn)
+        add_ms = head_ms = 0.0
+        for i, spec in enumerate(specs):
+            if isinstance(spec, S.Shortcut):
+                pair = (layers[i - 1], layers[S.resolve_ref(spec.ref, i)])
+                add_ms += cuda_ms(lambda: Q._requant_from(
+                    Q._add(*pair), None, outs[i]), iters=5)
+            elif i in Q.head_conv_layers(specs):
+                p = gpu_params[engine.layer_key(i)]
+                with L.exact_f32_convs():
+                    head_ms += cuda_ms(lambda: Q._conv_int8(
+                        spec, i, p, *layers[i - 1], None, False), iters=5)
+        del layers
+    print(f"[18 int8-act serve] make_int8_forward B={SERVE_BATCH} at "
+          f"{size}: {statistics.median(rates):.1f} img/s median of 3 x 5 "
+          f"steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
+          f"{statistics.median(step_ms):.2f} ms, backbone (apply_int8) "
+          f"{net_ms:.2f} ms; the mixed int8 path of phase 7 (bf16 between "
+          f"convs): {mixed_rate:.1f} img/s, backbone {mixed_net_ms:.2f} ms; "
+          f"peak memory {peak:.2f} GiB; mean num {out.num.mean():.1f}; on "
+          f"{smi}")
+
+    tot = collections.Counter()
+    for (k, stride, cin, cout, h), n in sorted(shapes.items(),
+                                              key=lambda kv: -kv[0][4]):
+        xq, s_in, w_q, s_w, b, s_out = int8_q_operands(
+            gen, dev, SERVE_BATCH, k, cin, cout, h)
+        kw = dict(stride=stride, act="leaky")
+        ms = cuda_ms(lambda: Q8.conv2d_int8_q(xq, s_in, w_q, s_w, b,
+                                              s_out=s_out, **kw), iters=10)
+        xb = (xq.float() * 0.02).to(torch.bfloat16)
+        mixed = cuda_ms(lambda: Q8.conv2d_int8(
+            xb, w_q, 0.02, s_w, b, epilogue_dtype=torch.bfloat16, **kw),
+            iters=10)
+        plain = cuda_ms(lambda: Q8.conv2d_int8_q_plain(
+            xq, s_in, w_q, s_w, b, s_out=s_out, **kw), iters=1, warmup=1)
+        nbytes, ops = int8_cost(SERVE_BATCH, k, stride, cin, cout, h, 1, 1)
+        bnd, by = bound_ms(nbytes, ops, INT8_OPS_S)
+        for key, v in (("ms", ms), ("mixed", mixed), ("plain", plain),
+                       ("bound", bnd), (f"bound_{by}", bnd)):
+            tot[key] += n * v
+        print(f"[18 int8-act kernel] B={SERVE_BATCH} int8 in and out k{k} "
+              f"s{stride} {cin}->{cout} at {h}^2 x{n}: "
+              f"{Q8.plan_q(xq, w_q)}, kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOPS), bound {bnd:.4f} ms ({by}), "
+              f"plain {plain:.3f} ms; the mixed kernel (bf16 in and out, "
+              f"quantize pass + GEMM) {mixed:.4f} ms")
+        del xq, w_q, xb
+    by = ("bytes" if tot["bound_bytes"] >= tot["bound_operations"]
+          else "operations")
+    rest = net_ms - tot["ms"] - add_ms - head_ms
+    print(f"[18 int8-act serve] backbone (apply_int8) {net_ms:.2f} ms = the "
+          f"int8-in convs {tot['ms']:.2f} (timed alone, below) + shortcuts' "
+          f"dequantize, add and requantize {add_ms:.2f} + float32 head convs "
+          f"{head_ms:.2f} + the rest {rest:.2f} ms (device)")
+    print(f"[18 int8-act kernel] per {MODEL}-416 forward at B={SERVE_BATCH}, "
+          f"summed over the {sum(shapes.values())} convs: the int8-in entry "
+          f"{tot['ms']:.3f} ms, the mixed kernel {tot['mixed']:.3f} ms, "
+          f"bound (int8 in and out) {tot['bound']:.3f} ms (bytes-bound "
+          f"layers {tot['bound_bytes']:.3f}, operations-bound "
+          f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms; on "
+          f"{smi}")
+    return n_q, {"max_abs_err": max_err, "ms": tot["ms"],
+                        "plain_ms": tot["plain"], "bound_ms": tot["bound"],
+                        "bound_by": by, "library_ms": None}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1749,8 +2281,9 @@ def main():
               f"images on the card: {float_rate:.1f} img/s median of 3 x 5 "
               f"steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
               f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode "
-              f"{dec_ms:.4f} ms, NMS {nms_ms:.4f} ms (device: top-k + the "
-              f"kernel), the rest {step - net_ms - dec_ms - nms_ms:.2f} ms; "
+              f"{dec_ms:.4f} ms, NMS {nms_ms:.4f} ms (device: candidate sort "
+              f"+ the kernel), the rest "
+              f"{step - net_ms - dec_ms - nms_ms:.2f} ms; "
               f"peak memory {peak:.2f} GiB; mean num {out.num.mean():.1f}; "
               f"on {smi}")
         del det
@@ -1761,8 +2294,8 @@ def main():
             int8_shapes(specs, cfg, convs - Q.head_conv_layers(specs)), dev)
 
         # 7. the int8 main path
-        int8_launches, qparams = int8_path_phase(specs, cfg, path, imgs, x,
-                                                 dev, float_rate, kind)
+        int8_launches, qparams, calib, int8_rate, int8_net_ms = \
+            int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind)
         del x
 
         # 8. conv_bnstat kernel vs plain, at the shapes training runs
@@ -1782,11 +2315,12 @@ def main():
         del params, stats
 
         # 11-12. yolov2-416: the region head on its real path; 13. yolov1
-        v2_launches = family_phases("yolov2", ("11 yolov2 f32",
-                                               "12 yolov2 bf16"), dev, kind,
-                                    smi)
-        family_phases("yolov1", ("13 yolov1 f32", "13 yolov1 bf16"), dev,
-                      kind, smi)
+        v2_launches, v2_path = family_phases(
+            "yolov2", ("11 yolov2 f32", "12 yolov2 bf16"), dev, kind, smi,
+            tmp)
+        _, v1_path = family_phases(
+            "yolov1", ("13 yolov1 f32", "13 yolov1 bf16"), dev, kind, smi,
+            tmp)
         require(launches == v2_launches == 1, "decode launches per forward: "
                 f"yolov3 {launches}, yolov2 {v2_launches}, expected 1 each")
 
@@ -1797,6 +2331,19 @@ def main():
         # 15. the fused letterbox
         letterbox_phase(cfg, path, qparams, int8_launches, dev, smi)
 
+        # 16. flip-TTA
+        tta_phase(cfg, path, v2_path, qparams, int8_launches, dev, kind, smi)
+
+        # 17. rolling-average smoothing
+        smoothing_phase(cfg, {MODEL: path, "yolov2": v2_path,
+                              "yolov1": v1_path}, dev, smi)
+
+        # 18. the all-int8-activation path and the int8-in kernel entry
+        q_launches, q_fields = int8_act_phase(
+            specs, cfg, path, int8_shapes(
+                specs, cfg, convs - Q.head_conv_layers(specs)),
+            qparams, calib, imgs, dev, int8_rate, int8_net_ms, kind, smi)
+
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/decode.cu",
@@ -1806,6 +2353,10 @@ def main():
         "source": "yolo_tensorflow_tpu_torch/csrc/conv_int8.cu",
         "replaces": "tools/probe_int8_3x3.py:35",
         "launches": int8_launches, **int8_fields}, {
+        "name": "conv2d_int8_q", "route": "cuda",
+        "source": "yolo_tensorflow_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "tools/probe_int8_3x3.py:35",
+        "launches": q_launches, **q_fields}, {
         "name": "conv3x3_bnstat", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/conv_bnstat.cu",
         "replaces": "tools/probe_conv_bnstat.py:47",

@@ -130,8 +130,8 @@ def test_conv2d_int8_plain_is_quantize_accumulate_epilogue(k, stride, dtype,
                                               pad=k // 2))
     sc = torch.tensor(s_x, dtype=torch.float32) * s_w
     if tdt == torch.float32:
-        want = (acc.double() * sc.double().view(1, -1, 1, 1)
-                + b.double().view(1, -1, 1, 1)).float()
+        want = K.fma_f32(acc.float(), sc.view(1, -1, 1, 1),
+                         b.view(1, -1, 1, 1))
     else:
         want = (acc.float().to(tdt) * sc.to(tdt).view(1, -1, 1, 1)
                 + b.to(tdt).view(1, -1, 1, 1))

@@ -135,12 +135,31 @@ def test_cuda_detector_raises_without_gpu():
 
 @pytest.mark.parametrize("options", [
     {"letterbox": True},                    # the host letterbox (cv2)
-    {"letterbox": True, "fused": True, "tta": True},
-    {"tta": True}, {"mesh": True}, {"donate": True}],
-    ids=["letterbox", "fused", "tta", "mesh", "donate"])
+    {"mesh": True}, {"donate": True}],
+    ids=["letterbox", "mesh", "donate"])
 def test_unported_options_raise(options):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Detector("yolov3-tiny", params={}, device="cpu", **options)
+
+
+@pytest.mark.parametrize("options", [
+    {"letterbox": True, "fused": True, "tta": True}, {"tta": True}],
+    ids=["fused", "tta"])
+def test_tta_options_run(options):
+    """TTA, which raised before it was ported, on both paths: Detections of
+    the narrow v3 model that differ from the detections without it
+    (tests/test_torch_tta.py holds them to the JAX package)."""
+    cfg, specs = model("narrow", SIZE)
+    det = [Detector(cfg, params=folded_params(specs, SIZE)[0], specs=specs,
+                    device="cpu", **dict(options, tta=t), **FUSED_OPTS)
+           for t in (True, False)]
+    if options.get("fused"):
+        canvas, sizes = _canvas(FUSED_SIZES)
+        got, plain = (d.detect_batch_fused(canvas, sizes) for d in det)
+    else:
+        got, plain = (d.detect_batch(images(2, SIZE)) for d in det)
+    assert (got.num > 0).all() and got.boxes.shape == plain.boxes.shape
+    assert not torch.equal(got.scores, plain.scores)
 
 
 def test_needs_weights_or_params():

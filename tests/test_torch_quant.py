@@ -9,8 +9,8 @@ package's ops/quant.py, on the same numpy parameters and inputs.
   exactly, and at 3x3 stride 1 the Pallas probe
   ``tools/probe_int8_3x3.pallas_conv3x3_int8`` run in interpret mode.
 - ``conv2d_int8`` equals the jitted JAX ``quant.conv2d_int8`` (+ leaky) to
-  1 ulp in float32 (JAX is one fma there, the plain version a float64
-  multiply-add rounded to float32) and exactly in bfloat16.
+  1 ulp in float32 (both round the epilogue as one fma; the bound stays
+  1 ulp) and exactly in bfloat16.
 On CPU tensors the wrapper runs the plain version; ``launches`` stays put.
 """
 

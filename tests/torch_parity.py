@@ -27,17 +27,19 @@ torch.set_num_threads(2)
 NARROW_CLASSES = ("a", "b", "c", "d")
 
 
-def narrow_spec(S=TS):
+def narrow_spec(S=TS, acts=("tanh", "relu")):
     """v3-style net, 8-32 channels, 4 classes, 2 scales, using Conv (BN,
     stride 2, leaky/relu/tanh, bias-only linear heads), MaxPool (VALID and
     SAME), Route (select and concat, incl. the input), Shortcut, Upsample
-    and Detect. ``S`` is the specs module whose classes build it."""
+    and Detect. ``S`` is the specs module whose classes build it; ``acts``
+    the activations of layers 3 and 12 (all leaky: the int8-activation
+    path's "narrow-leaky")."""
     per_scale = 3 * (5 + len(NARROW_CLASSES))
     return (
         S.Conv(8, 3),                                  # 0  64x64x8
         S.Conv(16, 3, stride=2),                       # 1  32x32x16
         S.Conv(8, 1),                                  # 2
-        S.Conv(16, 3, act="tanh"),                     # 3
+        S.Conv(16, 3, act=acts[0]),                    # 3
         S.Shortcut(-3),                                # 4  32x32x16
         S.MaxPool(2, 2),                               # 5  16x16x16
         S.Conv(32, 3),                                 # 6
@@ -46,7 +48,7 @@ def narrow_spec(S=TS):
         S.Conv(per_scale, 1, bn=False, act="linear"),  # 9
         S.Detect((3, 4, 5)),                           # 10 16x16
         S.Route((8,)),                                 # 11
-        S.Conv(8, 1, act="relu"),                      # 12
+        S.Conv(8, 1, act=acts[1]),                     # 12
         S.Upsample(),                                  # 13 32x32x8
         S.Route((-1, 4)),                              # 14 32x32x24
         S.Conv(16, 3),                                 # 15
@@ -111,6 +113,9 @@ def narrow_config(input_size=64, C=TC):
 def _model(C, S, name, input_size):
     if name == "narrow":
         return narrow_config(input_size, C), narrow_spec(S)
+    if name == "narrow-leaky":
+        return (narrow_config(input_size, C),
+                narrow_spec(S, acts=("leaky", "leaky")))
     if name in ("narrow-v2", "narrow-v2-s2d"):
         mode = "darknet" if name == "narrow-v2" else "space_to_depth"
         return (C.ModelConfig(

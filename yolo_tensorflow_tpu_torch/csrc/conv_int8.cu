@@ -22,6 +22,18 @@
 // The quantize uses IEEE division and rintf (half to even, as jnp.round):
 // this file must not be built with --use_fast_math.
 //
+// The int8-in entry (yolo_conv2d_int8_q) is the conv of
+// yolo_tensorflow_tpu/ops/quant.py apply_int8, the all-int8-activation path:
+// the input is already int8 (the previous layer requantized it), so there is
+// no quantize pass; the wgmma instances read it as their A operand and the
+// direct kernel packs its bytes. Its epilogue, in f32:
+//   y = fmaf(float(acc), f32(s_in * s_w[o]), b[o]), then leaky in f32,
+//   then either int8 out, q = clamp(rint(y * inv_out), -127, 127), or f32.
+// inv_out = f32(1 / s_out) is computed by the caller: XLA compiles
+// apply_int8's y / s_out (a constant) into that multiply, so this is the
+// JAX package's program bit for bit. The int8 tile goes out 16 bytes a
+// thread along Cout, as the other dtypes do.
+//
 // Bound. At yolov3-416, batch 64, the 72 quantized convs do 4.18 T int8
 // operations, 2.11 ms at the H100's 1,979 TOPS dense int8 peak, and move
 // 9.99 GB (bf16 input read once, int8 weights, bf16 output written once),
@@ -78,8 +90,9 @@ constexpr float kAlphaBf16 = 0.10009765625f;    // bf16(0.1)
 struct Epilogue {
   const float* s_w;     // (cout,)
   const float* bias;    // (cout,)
-  void* y;              // (batch, ho, wo, cout) f32 or bf16
-  float s_x;
+  void* y;              // (batch, ho, wo, cout) f32, bf16 or int8
+  float s_x;            // the input's scale
+  float inv_out;        // int8 out: 1 / the output's scale
   int leaky;
   int y_vec;            // y rows take 16-byte stores
 };
@@ -113,6 +126,24 @@ __device__ __forceinline__ uint32_t quant(float v, float s) {
   return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
 }
 
+// One input byte of the direct kernel: a float quantized with scale s, or
+// an int8 value as it is (the int8-in entry).
+__device__ __forceinline__ uint32_t input_byte(float v, float s) {
+  return quant(v, s);
+}
+__device__ __forceinline__ uint32_t input_byte(__nv_bfloat16 v, float s) {
+  return quant(__bfloat162float(v), s);
+}
+__device__ __forceinline__ uint32_t input_byte(int8_t v, float) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(v));
+}
+
+// clamp(rint(v * inv), -127, 127): the requantize of the int8-in entry
+__device__ __forceinline__ int8_t requant(float v, float inv) {
+  return static_cast<int8_t>(static_cast<int>(
+      fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.0f), 127.0f)));
+}
+
 __device__ __forceinline__ uint32_t quant4(const float* v, float s) {
   return quant(v[0], s) | (quant(v[1], s) << 8) | (quant(v[2], s) << 16) |
          (quant(v[3], s) << 24);
@@ -128,25 +159,35 @@ __device__ __forceinline__ float2 bf16_round2(float a, float b) {
 // The epilogue of two neighbouring output channels: accumulators a0 and a1,
 // scales sc = s_x * s_w and biases b of the two.
 __device__ __forceinline__ float2 epilogue2(int a0, int a1, float2 sc,
-                                            float2 b, int leaky, float) {
+                                            float2 b, const Epilogue& p,
+                                            float) {
   float2 y = make_float2(__fmaf_rn(__int2float_rn(a0), sc.x, b.x),
                          __fmaf_rn(__int2float_rn(a1), sc.y, b.y));
-  if (leaky) {
+  if (p.leaky) {
     y.x = fmaxf(__fmul_rn(y.x, kAlpha), y.x);
     y.y = fmaxf(__fmul_rn(y.y, kAlpha), y.y);
   }
   return y;
 }
 
+// int8 out: the f32 epilogue, then the requantize
+__device__ __forceinline__ char2 epilogue2(int a0, int a1, float2 sc,
+                                           float2 b, const Epilogue& p,
+                                           int8_t) {
+  const float2 y = epilogue2(a0, a1, sc, b, p, 0.0f);
+  return make_char2(requant(y.x, p.inv_out), requant(y.y, p.inv_out));
+}
+
 __device__ __forceinline__ __nv_bfloat162 epilogue2(int a0, int a1, float2 sc,
-                                                    float2 b, int leaky,
+                                                    float2 b,
+                                                    const Epilogue& p,
                                                     __nv_bfloat16) {
   const float2 a = bf16_round2(__int2float_rn(a0), __int2float_rn(a1));
   const float2 s = bf16_round2(sc.x, sc.y);
   const float2 c = bf16_round2(b.x, b.y);
   const float2 m = bf16_round2(__fmul_rn(a.x, s.x), __fmul_rn(a.y, s.y));
   float2 y = bf16_round2(__fadd_rn(m.x, c.x), __fadd_rn(m.y, c.y));
-  if (leaky) {
+  if (p.leaky) {
     const float2 l = bf16_round2(__fmul_rn(y.x, kAlphaBf16),
                                  __fmul_rn(y.y, kAlphaBf16));
     y.x = fmaxf(l.x, y.x);
@@ -162,6 +203,10 @@ __device__ __forceinline__ void store_pair(float* p, float2 v) {
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p,
                                            __nv_bfloat162 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+__device__ __forceinline__ void store_pair(int8_t* p, char2 v) {
+  *reinterpret_cast<char2*>(p) = v;
 }
 
 // q[i] = clamp(rint(x[i] / s), -127, 127) for i < n. With `vec` (x 16-byte
@@ -215,7 +260,7 @@ conv_int8_wgmma(const igemm::Conv g, const Epilogue p) {
     for (int half = 0; half < 2; ++half) {
       store_pair(igemm::tile_at<Tout, BN>(ring, igemm::frag_row(half), col),
                  epilogue2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1],
-                           sc, b, p.leaky, Tout()));
+                           sc, b, p, Tout()));
     }
   }
   __syncthreads();
@@ -223,8 +268,9 @@ conv_int8_wgmma(const igemm::Conv g, const Epilogue p) {
                                  g.cout, p.y_vec != 0);
 }
 
-// Cin = 3, k = 3, Cout <= 32 and Cout % 8 == 0: no tensor cores, and the
-// quantize in registers. Thread t of CTA i owns output pixel 128 i + t. The
+// Cin = 3, k = 3, Cout <= 32 and Cout a whole number of 16-byte chunks of
+// Tout: no tensor cores, and the quantize in registers (an int8 input is
+// packed as it is). Thread t of CTA i owns output pixel 128 i + t. The
 // CTA's 128 output rows are one contiguous run of y: they are staged in
 // shared memory and written as whole 16-byte chunks, neighbouring threads
 // neighbouring chunks (a thread storing its own row would half-fill every
@@ -287,7 +333,7 @@ conv_int8_direct(const igemm::Conv g, const Epilogue p) {
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
             const int k = (ky * 3 + kx) * 3 + c;
-            qw[k / 4] |= quant(to_float(src[c]), p.s_x) << (8 * (k % 4));
+            qw[k / 4] |= input_byte(src[c], p.s_x) << (8 * (k % 4));
           }
         }
       }
@@ -319,7 +365,7 @@ conv_int8_direct(const igemm::Conv g, const Epilogue p) {
       store_pair(&v[e], epilogue2(
           acc[o + e], acc[o + e + 1],
           make_float2(sc_s[o + e], sc_s[o + e + 1]),
-          make_float2(b_s[o + e], b_s[o + e + 1]), p.leaky, Tout()));
+          make_float2(b_s[o + e], b_s[o + e + 1]), p, Tout()));
     }
     *reinterpret_cast<uint4*>(&y_s[tid * kPitch + o * sizeof(Tout)]) =
         *reinterpret_cast<uint4*>(v);
@@ -371,7 +417,7 @@ cudaError_t launch_wgmma(const igemm::Conv& g, const Epilogue& p,
 
 template <typename Tout, bool kAsync>
 cudaError_t launch_bn(int bn, const igemm::Conv& g, const Epilogue& p,
-                         cudaStream_t s) {
+                      cudaStream_t s) {
   switch (bn) {
     case 128: return launch_wgmma<Tout, 128, kAsync>(g, p, s);
     case 64: return launch_wgmma<Tout, 64, kAsync>(g, p, s);
@@ -451,6 +497,7 @@ extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, void* xq,
   p.bias = static_cast<const float*>(bias);
   p.y = y;
   p.s_x = s_x;
+  p.inv_out = 0.0f;
   p.leaky = leaky;
   p.y_vec = cout % (y_bf16 ? 8 : 4) == 0 && aligned16(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -474,6 +521,63 @@ extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, void* xq,
                  : launch_bn<float, true>(bn, g, p, s);
   } else {
     err = y_bf16 ? launch_bn<__nv_bfloat16, false>(bn, g, p, s)
+                 : launch_bn<float, false>(bn, g, p, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The int8-in convolution of the all-int8-activation path. xq: (batch, h, w,
+// cin) int8 contiguous, the layer's input, already quantized with scale
+// s_in. wq, s_w, bias, shapes, leaky, instance and bn as yolo_conv2d_int8,
+// except that there is no quantize pass and no scratch: instances 0 and 1
+// read xq itself (instance 1 needs it 16-byte aligned), instance 2 packs its
+// bytes. y: (batch, ho, wo, cout) contiguous, int8 requantized with inv_out
+// = 1 / the output's scale (y_int8 = 1; instance 2 then needs cout % 16 ==
+// 0) or f32 (y_int8 = 0; cout % 8 == 0 for instance 2). Launches on
+// `stream` and returns the first CUDA error, or 0.
+extern "C" int yolo_conv2d_int8_q(const void* xq, const void* wq, float s_in,
+                                  const void* s_w, const void* bias, void* y,
+                                  int y_int8, float inv_out, int batch, int h,
+                                  int w, int cin, int cout, int ksize,
+                                  int stride, int pad, int leaky,
+                                  int instance, int bn, void* stream) {
+  if (batch < 0 || h < 1 || w < 1 || cin < 1 || cout < 1 || ksize < 1 ||
+      stride < 1 || pad < 0 || instance < 0 || instance > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (instance == 1 && (cin % 16 != 0 || !aligned16(wq) || !aligned16(xq))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (instance == 2 && (cin != 3 || ksize != 3 || cout > kDirectN ||
+                        cout % (y_int8 ? 16 : 8) != 0 || !aligned16(y))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  igemm::Conv g;
+  g.a = xq;
+  g.b = wq;
+  if (!igemm::set_shape(&g, batch, h, w, cin, cout, ksize, stride, pad,
+                        instance == 2 ? kDirectN : bn)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (g.m == 0) return 0;
+  Epilogue p;
+  p.s_w = static_cast<const float*>(s_w);
+  p.bias = static_cast<const float*>(bias);
+  p.y = y;
+  p.s_x = s_in;
+  p.inv_out = inv_out;
+  p.leaky = leaky;
+  p.y_vec = cout % (y_int8 ? 16 : 4) == 0 && aligned16(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (instance == 2) {
+    err = y_int8 ? launch_direct<int8_t, int8_t>(g, p, s)
+                 : launch_direct<int8_t, float>(g, p, s);
+  } else if (instance == 1) {
+    err = y_int8 ? launch_bn<int8_t, true>(bn, g, p, s)
+                 : launch_bn<float, true>(bn, g, p, s);
+  } else {
+    err = y_int8 ? launch_bn<int8_t, false>(bn, g, p, s)
                  : launch_bn<float, false>(bn, g, p, s);
   }
   return static_cast<int>(err);

@@ -48,6 +48,14 @@
 //   and sank the padded rows with score -1).
 // Inputs are f32 or bf16 (templated); all arithmetic is f32, with expf and
 // IEEE division as in the plain PyTorch version.
+//
+// bf16 scoring (score_bf16, sigmoid classes only; a template parameter): the
+// TPU package's score_dtype=bfloat16 (heads.decode_scored). The conf and
+// class logits are rounded to bf16 and the label is the argmax of the
+// rounded logits (first index on ties); the score is
+//   bf16(s16(bf16(conf)) * s16(bf16(max logit))),
+// with s16(x) = bf16(1 / bf16(1 + bf16(exp(-x)))), the bf16 logistic as XLA
+// expands it (a rounding to bf16 after every step). Boxes stay f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +95,24 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 
 __device__ __forceinline__ float logistic(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the bf16 logistic of a bf16 value x, rounded to bf16 after each step
+__device__ __forceinline__ float logistic_bf16(float x) {
+  const float e = bf16_round(expf(-x));
+  const float d = bf16_round(1.0f + e);
+  return bf16_round(1.0f / d);
+}
+
+// a class or conf logit as the scoring reads it: rounded to bf16 in the
+// bf16 scoring mode (a no-op for bf16 inputs)
+template <bool kBf16Score, typename T>
+__device__ __forceinline__ float score_logit(T v) {
+  return kBf16Score ? bf16_round(to_float(v)) : to_float(v);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -136,7 +162,7 @@ __device__ __forceinline__ void fill_stage(const Table& tab, int tile,
   }
 }
 
-template <typename T>
+template <typename T, bool kBf16Score>
 __device__ __forceinline__ void decode_tile(const Table& tab, int tile,
                                             int tile_rows, int num_classes,
                                             int class_softmax, int total_rows,
@@ -150,11 +176,11 @@ __device__ __forceinline__ void decode_tile(const Table& tab, int tile,
   const T* x = stage + threadIdx.x * (5 + num_classes);
   const T* logits = x + 5;
 
-  float best = to_float(logits[0]);
+  float best = score_logit<kBf16Score>(logits[0]);
   int best_i = 0;
 #pragma unroll 4
   for (int c = 1; c < num_classes; ++c) {
-    const float v = to_float(logits[c]);
+    const float v = score_logit<kBf16Score>(logits[c]);
     if (v > best) {  // c rises, so a tie keeps the first class
       best = v;
       best_i = c;
@@ -188,11 +214,14 @@ __device__ __forceinline__ void decode_tile(const Table& tab, int tile,
                       + i;
   boxes[out] = make_float4(bx - half_w, by - half_h, bx + half_w,
                            by + half_h);
-  score[out] = logistic(to_float(x[4])) * prob;
+  score[out] = kBf16Score && !class_softmax
+                   ? bf16_round(logistic_bf16(score_logit<true>(x[4])) *
+                                logistic_bf16(best))
+                   : logistic(to_float(x[4])) * prob;
   label[out] = best_i;
 }
 
-template <typename T>
+template <typename T, bool kBf16Score>
 __global__ void __launch_bounds__(kMaxThreads)
 decode_kernel(const __grid_constant__ Table tab,
               float4* __restrict__ boxes, float* __restrict__ score,
@@ -225,13 +254,15 @@ decode_kernel(const __grid_constant__ Table tab,
       fill_stage(tab, next, tile_rows, row_elems, ring + refill * stage_elems);
     }
     cp_async_commit();
-    decode_tile(tab, tile, tile_rows, num_classes, class_softmax, total_rows,
-                ring + stage * stage_elems, boxes, score, label);
+    decode_tile<T, kBf16Score>(tab, tile, tile_rows, num_classes,
+                               class_softmax, total_rows,
+                               ring + stage * stage_elems, boxes, score,
+                               label);
     stage = stage + 1 == stages ? 0 : stage + 1;
   }
 }
 
-template <typename T>
+template <typename T, bool kBf16Score>
 int launch(const Table& tab, void* boxes, void* score, void* label,
            int num_classes, int class_softmax, int tile_rows, int stages,
            int total_tiles, int total_rows, cudaStream_t stream) {
@@ -248,14 +279,14 @@ int launch(const Table& tab, void* boxes, void* score, void* label,
   if (device != cached_device || threads != cached_threads
       || shared != cached_shared) {
     cached_device = -1;
-    err = cudaFuncSetAttribute(decode_kernel<T>,
+    err = cudaFuncSetAttribute(decode_kernel<T, kBf16Score>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSharedBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, decode_kernel<T>, threads, shared);
+        &per_sm, decode_kernel<T, kBf16Score>, threads, shared);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
     cached_device = device;
@@ -263,7 +294,7 @@ int launch(const Table& tab, void* boxes, void* score, void* label,
     cached_shared = shared;
   }
   const int blocks = min(total_tiles, per_sm * sms);
-  decode_kernel<T><<<blocks, threads, shared, stream>>>(
+  decode_kernel<T, kBf16Score><<<blocks, threads, shared, stream>>>(
       tab, static_cast<float4*>(boxes), static_cast<float*>(score),
       static_cast<int32_t*>(label), num_classes, class_softmax, tile_rows,
       stages, total_tiles, total_rows);
@@ -280,14 +311,17 @@ int launch(const Table& tab, void* boxes, void* score, void* label,
 // first_tile .. first_tile + ceil(rows / tile_rows) - 1, in scale order, and
 // total_tiles is their count. anchors_wh: host array of the scales' (w, h)
 // pairs in grid cells, scale after scale. tile_rows: rows a tile, a multiple
-// of 8 up to 256; stages: depth of the shared-memory ring, 2 or 3. boxes
+// of 8 up to 256; stages: depth of the shared-memory ring, 2 or 3.
+// score_bf16 = 1 scores sigmoid classes in bf16 (see the header; ignored
+// with class_softmax = 1). boxes
 // (batch, total_rows, 4) f32, score (batch, total_rows) f32 and label (batch,
 // total_rows) int32 are written at rows [row_offset, row_offset + grid *
 // grid * num_anchors) of every image. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int yolo_decode(const void* const* feats, const int* table,
                            const float* anchors_wh, int num_scales,
-                           int num_classes, int class_softmax, int is_bf16,
+                           int num_classes, int class_softmax,
+                           int score_bf16, int is_bf16,
                            int tile_rows, int stages, int total_tiles,
                            int total_rows, void* boxes, void* score,
                            void* label, void* stream) {
@@ -322,11 +356,23 @@ extern "C" int yolo_decode(const void* const* feats, const int* table,
   }
   if (total_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bf16_score = score_bf16 && !class_softmax;
   if (is_bf16) {
-    return launch<__nv_bfloat16>(tab, boxes, score, label, num_classes,
-                                 class_softmax, tile_rows, stages, total_tiles,
-                                 total_rows, s);
+    return bf16_score
+               ? launch<__nv_bfloat16, true>(tab, boxes, score, label,
+                                             num_classes, class_softmax,
+                                             tile_rows, stages, total_tiles,
+                                             total_rows, s)
+               : launch<__nv_bfloat16, false>(tab, boxes, score, label,
+                                              num_classes, class_softmax,
+                                              tile_rows, stages, total_tiles,
+                                              total_rows, s);
   }
-  return launch<float>(tab, boxes, score, label, num_classes, class_softmax,
-                       tile_rows, stages, total_tiles, total_rows, s);
+  return bf16_score
+             ? launch<float, true>(tab, boxes, score, label, num_classes,
+                                   class_softmax, tile_rows, stages,
+                                   total_tiles, total_rows, s)
+             : launch<float, false>(tab, boxes, score, label, num_classes,
+                                    class_softmax, tile_rows, stages,
+                                    total_tiles, total_rows, s);
 }

@@ -259,8 +259,10 @@ class Network(nn.Module):
         self.requires_grad_(False)
         self.to(device=device, dtype=dtype, memory_format=torch.channels_last)
 
-    def forward(self, x):
-        outputs, detections = [], []
+    def layer_outputs(self, x) -> list:
+        """The output of every layer, in spec order (NCHW channels-last, or
+        (B, features))."""
+        outputs = []
         x = x.to(self.dtype)
         cur = x
         with L.exact_f32_convs(self.dtype == torch.float32 and x.is_cuda):
@@ -273,10 +275,14 @@ class Network(nn.Module):
                     cur = self.dense[layer_key(i)](cur)
                 else:
                     cur = apply_unweighted(spec, i, cur, x, outputs)
-                if isinstance(spec, S.Detect):
-                    detections.append((head_view(cur), spec))
                 outputs.append(cur)
-        return detections
+        return outputs
+
+    def forward(self, x):
+        outputs = self.layer_outputs(x)
+        return [(head_view(outputs[i]), spec)
+                for i, spec in enumerate(self.specs)
+                if isinstance(spec, S.Detect)]
 
 
 def uses_conv_bnstat(spec) -> bool:

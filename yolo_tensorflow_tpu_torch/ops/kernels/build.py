@@ -106,12 +106,15 @@ def build(force: bool = False) -> Path:
 VP, INT, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every extern "C" entry point of csrc/*.cu: (argument types, result type)
 SIGNATURES = {
-    "yolo_decode": ([VP, VP, VP, INT, INT, INT, INT, INT, INT, INT, INT, VP,
-                     VP, VP, VP], INT),
+    "yolo_decode": ([VP, VP, VP, INT, INT, INT, INT, INT, INT, INT, INT,
+                     INT, VP, VP, VP, VP], INT),
     "yolo_quantize_act": ([VP, INT, VP, ctypes.c_longlong, F32, VP], INT),
     "yolo_conv2d_int8": ([VP, INT, VP, VP, F32, VP, VP, VP, INT, INT, INT,
                           INT, INT, INT, INT, INT, INT, INT, INT, INT, VP],
                          INT),
+    "yolo_conv2d_int8_q": ([VP, VP, F32, VP, VP, VP, INT, F32, INT, INT,
+                            INT, INT, INT, INT, INT, INT, INT, INT, INT, VP],
+                           INT),
     "yolo_conv3x3_bnstat_tiles": ([INT, INT, INT], INT),
     "yolo_conv3x3_bnstat": ([VP, VP, VP, VP, VP, VP, VP, INT, INT, INT, INT,
                              INT, INT, INT, INT, VP], INT),

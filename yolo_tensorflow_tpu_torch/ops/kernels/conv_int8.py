@@ -15,6 +15,12 @@ Layouts are the port's: x is NCHW in channels-last memory (the NHWC bytes),
 w_q is OIHW int8 in channels-last memory (the (Cout, kh, kw, Cin) bytes the
 kernel reads), s_w and b are (Cout,) float32 and s_x is a host scalar.
 
+``conv2d_int8_q`` is the int8-in entry, the conv of the TPU package's
+all-int8-activation path (ops/quant.apply_int8): int8 activations in,
+with their scale s_in, no quantize pass, and the epilogue fmaf(acc, s_in *
+s_w, b), leaky, then int8 out requantized with s_out (or float32 out where
+the layer keeps no out scale). It has its own count, ``launches_q``.
+
 Dispatch is by the device of the input: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version. ``launches`` counts kernel
 launches and nothing else.
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,6 +38,7 @@ from yolo_tensorflow_tpu_torch.ops import layers as L
 from yolo_tensorflow_tpu_torch.ops.kernels import build, igemm
 
 launches = 0
+launches_q = 0
 
 ACTIVATIONS = ("linear", "leaky")
 EPILOGUE_DTYPES = (torch.float32, torch.bfloat16)
@@ -103,10 +111,9 @@ def conv2d_int8_plain(x, w_q, s_x, s_w, b, *, stride: int = 1,
                       epilogue_dtype=torch.float32):
     """Plain PyTorch version of ``conv2d_int8``, on any device.
 
-    f32 epilogue: acc * sc + b in float64, rounded once to f32; the kernel's
-    single fma differs from it only where that double rounding does (1 ulp,
-    rarely). bf16 epilogue: bf16 tensor ops rounding after each step, as
-    the kernel and JAX do."""
+    f32 epilogue: one fma, fma_f32(acc, sc, b), as the kernel and JAX's
+    compiled program round it. bf16 epilogue: bf16 tensor ops rounding
+    after each step, as the kernel and JAX do."""
     k = w_q.shape[-1]
     pad = k // 2 if pad is None else pad
     s = torch.tensor(float(s_x), dtype=torch.float32, device=x.device)
@@ -114,8 +121,8 @@ def conv2d_int8_plain(x, w_q, s_x, s_w, b, *, stride: int = 1,
     acc = int8_accumulate(xq, w_q, stride=stride, pad=pad).float()
     sc = s * s_w.float()                       # f32, as the JAX epilogue
     if epilogue_dtype == torch.float32:
-        y = (acc.double() * _column(sc, torch.float64)
-             + _column(b, torch.float64)).float()
+        y = fma_f32(acc, _column(sc, torch.float32),
+                    _column(b, torch.float32))
     else:
         y = (acc.to(epilogue_dtype) * _column(sc, epilogue_dtype)
              + _column(b, epilogue_dtype))
@@ -124,11 +131,12 @@ def conv2d_int8_plain(x, w_q, s_x, s_w, b, *, stride: int = 1,
     return y.contiguous(memory_format=torch.channels_last)
 
 
-def _check(x, w_q, s_w, b, stride, pad, act, epilogue_dtype):
+def _check(x, w_q, s_w, b, stride, pad, act, epilogue_dtype,
+           x_dtypes=(torch.float32, torch.bfloat16)):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8 conv runs on cpu or cuda, not {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"int8 conv takes float32 or bfloat16 input, not "
+    if x.dtype not in x_dtypes:
+        raise TypeError(f"this int8 conv takes {x_dtypes} input, not "
                         f"{x.dtype}")
     if epilogue_dtype not in EPILOGUE_DTYPES:
         raise TypeError(f"int8 conv epilogue is float32 or bfloat16, not "
@@ -209,4 +217,111 @@ def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype):
         raise RuntimeError(f"int8 conv kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    return y
+
+
+# ---------------------------------------------------------- the int8-in entry
+
+def fma_f32(a, b, c):
+    """a * b + c rounded once to float32, as one fmaf: a, b and c float32
+    tensors (broadcasting), on any device. The product is exact in float64;
+    the sum is rounded to odd in float64 (TwoSum, then one step toward the
+    rounding error where the result is even), which a second rounding to
+    float32 turns into the correctly rounded sum."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def inv_scale(s_out) -> float:
+    """f32(1 / f32(s_out)): XLA compiles the TPU package's ``y / s_out`` by
+    a constant into a multiply by this."""
+    return float(np.float32(1.0) / np.float32(s_out))
+
+
+def requantize_plain(y, factor: float):
+    """clamp(rint(y * factor), -127, 127) as int8, the product in float32:
+    with factor = inv_scale(s_out), the TPU package's ``_requant(y, s_out)``
+    as its compiled program runs it. The factor is a 0-dim CPU tensor, so a
+    CUDA y takes it with no copy to the card."""
+    f = torch.tensor(factor, dtype=torch.float32)
+    return torch.clamp(torch.round(y.float() * f), -127, 127).to(torch.int8)
+
+
+def conv2d_int8_q_plain(xq, s_in, w_q, s_w, b, *, stride: int = 1,
+                        pad: int = None, act: str = "linear", s_out=None):
+    """Plain PyTorch version of ``conv2d_int8_q``, on any device, rounding
+    as the kernel does: the exact accumulator, one fma (``fma_f32``), leaky
+    in float32, the requantize of ``requantize_plain``."""
+    k = w_q.shape[-1]
+    pad = k // 2 if pad is None else pad
+    acc = int8_accumulate(xq, w_q, stride=stride, pad=pad).float()
+    sc = torch.tensor(float(np.float32(s_in)),
+                      dtype=torch.float32) * s_w.float()
+    y = fma_f32(acc, _column(sc, torch.float32), _column(b, torch.float32))
+    if act == "leaky":
+        y = L.leaky_relu(y)
+    if s_out is not None:
+        y = requantize_plain(y, inv_scale(s_out))
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def conv2d_int8_q(xq, s_in, w_q, s_w, b, *, stride: int = 1,
+                  pad: int = None, act: str = "linear", s_out=None):
+    """int8 xq (B, Cin, H, W) in channels-last memory, quantized with scale
+    s_in, convolved with w_q (int32 accumulation), dequantized with s_in *
+    s_w, plus b, then ``act``; int8 requantized with s_out, or float32 where
+    s_out is None. Channels-last (B, Cout, Ho, Wo)."""
+    k = w_q.shape[-1]
+    pad = k // 2 if pad is None else pad
+    _check(xq, w_q, s_w, b, stride, pad, act, torch.float32,
+           x_dtypes=(torch.int8,))
+    if xq.device.type == "cpu":
+        return conv2d_int8_q_plain(xq, s_in, w_q, s_w, b, stride=stride,
+                                   pad=pad, act=act, s_out=s_out)
+    return _launch_q(xq, float(np.float32(s_in)), w_q, s_w, b, stride, pad,
+                     act, s_out)
+
+
+def plan_q(xq, w_q, int8_out: bool = True):
+    """(instance, BN) of the kernel that ``conv2d_int8_q`` launches: with no
+    quantize pass and no scratch, the input's alignment counts too."""
+    cout, cin, k = w_q.shape[0], w_q.shape[1], w_q.shape[-1]
+    aligned = w_q.data_ptr() % 16 == 0 and xq.data_ptr() % 16 == 0
+    return (igemm.pick_instance(cin, cout, k, 1, aligned,
+                                out_chunk=16 if int8_out else 8),
+            igemm.pick_bn(cout, 1))
+
+
+def _launch_q(xq, s_in, w_q, s_w, b, stride, pad, act, s_out):
+    global launches_q
+    batch, cin, h, w = xq.shape
+    cout, k = w_q.shape[0], w_q.shape[-1]
+    int8_out = s_out is not None
+    y = torch.empty((batch, cout, (h + 2 * pad - k) // stride + 1,
+                     (w + 2 * pad - k) // stride + 1),
+                    dtype=torch.int8 if int8_out else torch.float32,
+                    device=xq.device, memory_format=torch.channels_last)
+    if y.numel() == 0:
+        return y
+    instance, bn = plan_q(xq, w_q, int8_out)
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        err = build.load().yolo_conv2d_int8_q(
+            xq.data_ptr(), w_q.data_ptr(), s_in, s_w.data_ptr(),
+            b.data_ptr(), y.data_ptr(), int(int8_out),
+            inv_scale(s_out) if int8_out else 0.0, batch, h, w, cin, cout,
+            k, stride, pad, int(act == "leaky"), igemm.INSTANCES[instance],
+            bn, stream)
+    if err != 0:
+        raise RuntimeError(f"int8-in conv kernel launch failed: CUDA error "
+                           f"{err}")
+    launches_q += 1
     return y

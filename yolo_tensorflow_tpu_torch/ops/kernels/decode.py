@@ -10,6 +10,13 @@ by ``plan_tiles``. The plain version is the port's
 heads.decode_scale_scored. The v1 head has no kernel, in the TPU package
 either: ``pipeline.make_forward`` decodes it with heads.decode_scored.
 
+``score_dtype=torch.bfloat16`` is the TPU package's bf16 scoring of the
+sigmoid-class (v3) head (its heads.decode_scored) as a mode of the kernel:
+the conf and class logits rounded to bf16, the label the argmax of the
+rounded logits, the score bf16(s(conf) * s(max)) with the bf16 logistic
+rounded step by step (heads.sigmoid_bf16). Softmax classes ignore it, as
+the TPU package does.
+
 Dispatch is by the device of the input: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version. ``launches`` counts kernel
 launches and nothing else.
@@ -38,9 +45,10 @@ def decode_scale_plain(feat, anchors_px, input_size: int, num_classes: int,
     return heads.xywh_to_xyxy(boxes), score, label
 
 
-def decode_plain(detections, cfg):
+def decode_plain(detections, cfg, score_dtype=None):
     """Plain PyTorch version of ``decode_fused``, on any device."""
-    boxes, scores, labels = heads.decode_scored(detections, cfg)
+    boxes, scores, labels = heads.decode_scored(detections, cfg,
+                                                score_dtype=score_dtype)
     return heads.xywh_to_xyxy(boxes), scores, labels
 
 
@@ -126,10 +134,12 @@ def _launch_args(batch, geometry, input_size, num_classes, elem_bytes,
             (ctypes.c_float * len(wh))(*wh), plan)
 
 
-def _launch(scales, input_size, num_classes, boxes, score, label):
+def _launch(scales, input_size, num_classes, boxes, score, label,
+            score_bf16=False):
     """One kernel launch over the scales [(feat, anchors_px, class_softmax)]
     of a head, MAX_SCALES at most, written one after the other into the
-    preallocated outputs."""
+    preallocated outputs. ``score_bf16``: the bf16 scoring mode (sigmoid
+    classes only)."""
     global launches
     if not 1 <= len(scales) <= MAX_SCALES:
         raise ValueError(f"{len(scales)} scales in one decode launch "
@@ -173,6 +183,7 @@ def _launch(scales, input_size, num_classes, boxes, score, label):
             (ctypes.c_void_p * len(scales))(*(f.data_ptr()
                                               for f, _, _ in scales)),
             table, wh, len(scales), num_classes, int(bool(softmax)),
+            int(bool(score_bf16) and not softmax),
             int(feat0.dtype == torch.bfloat16), plan.tile_rows, plan.stages,
             plan.total_tiles, total, boxes.data_ptr(), score.data_ptr(),
             label.data_ptr(), stream)
@@ -209,16 +220,18 @@ def decode_scale_fused(feat, anchors_px, input_size: int, num_classes: int,
     return out
 
 
-def decode_fused(detections, cfg):
+def decode_fused(detections, cfg, score_dtype=None):
     """All scales of a v2 or v3 head, concatenated in spec order like the
     TPU package's decode_fused. Returns (boxes_xyxy, scores, labels). On
     CUDA one launch decodes every scale (MAX_SCALES at most), each into its
-    row range of one set of outputs."""
+    row range of one set of outputs. ``score_dtype`` applies to the v3
+    head only."""
+    bf16 = heads.check_score_dtype(score_dtype) and cfg.head == 3
     scales = heads.head_scales(detections, cfg)
     feat0 = scales[0][0]
     if not _check_device(feat0):
-        return decode_plain(detections, cfg)
+        return decode_plain(detections, cfg, score_dtype=score_dtype)
     rows = sum(f.shape[1] * f.shape[2] * len(a) for f, a, _ in scales)
     out = _outputs(feat0, feat0.shape[0], rows)
-    _launch(scales, cfg.input_size, cfg.num_classes, *out)
+    _launch(scales, cfg.input_size, cfg.num_classes, *out, score_bf16=bf16)
     return out

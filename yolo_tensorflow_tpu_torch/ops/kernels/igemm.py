@@ -33,15 +33,16 @@ def pick_bn(cout: int, elem_bytes: int) -> int:
 
 
 def pick_instance(cin: int, cout: int, ksize: int, elem_bytes: int,
-                  aligned: bool) -> str:
+                  aligned: bool, out_chunk: int = 8) -> str:
     """``direct``: the first conv of a network (Cin = 3, 3x3, Cout <= 32 in
-    whole 16-byte stores), no tensor cores. ``wgmma``: the cp.async ring,
+    whole 16-byte stores: a multiple of ``out_chunk``, 16 for int8 out), no
+    tensor cores. ``wgmma``: the cp.async ring,
     which copies 16 bytes of one tap at a time, so a pixel's Cin elements
     (``elem_bytes`` each) must fill whole 16-byte chunks and the operands
     (``aligned``) must start on one. ``gather``: every other conv, the same
     ring filled element by element."""
     if (cin == 3 and ksize == 3 and cout <= DIRECT_MAX_COUT
-            and cout % 8 == 0):
+            and cout % out_chunk == 0):
         return "direct"
     if aligned and (cin * elem_bytes) % 16 == 0:
         return "wgmma"

@@ -136,7 +136,13 @@ def batch_norm_train(x, gamma, beta, eps, *, stats: str = "twopass",
 def max_pool(x, size=2, stride=2):
     """Max pool. stride == size is VALID; stride < size (the tiny models'
     stride-1 size-2 pool) is XLA's SAME, which pads at the END only, with
-    -inf. ``F.max_pool2d`` alone would pad symmetrically."""
+    -inf. ``F.max_pool2d`` alone would pad symmetrically. An int8 x (the
+    all-int8-activation path) pools in bfloat16, which holds every int8
+    value exactly, and comes back as int8: ``F.max_pool2d`` does not take
+    int8, and every window holds at least one value of x, so the -inf
+    padding never reaches the output."""
+    if x.dtype == torch.int8:
+        return max_pool(x.to(torch.bfloat16), size, stride).to(torch.int8)
     if stride != size:
         pads = []
         for n in (x.shape[3], x.shape[2]):            # F.pad order: W, H
@@ -148,8 +154,17 @@ def max_pool(x, size=2, stride=2):
 
 
 def upsample_nearest(x, factor=2):
-    """Nearest-neighbour integer upsample (darknet's upsample layer)."""
-    return F.interpolate(x, scale_factor=factor, mode="nearest")
+    """Nearest-neighbour integer upsample (darknet's upsample layer). A
+    floating x goes through ``F.interpolate``; any other dtype (int8 on the
+    all-int8-activation path) through a broadcast copy of its NHWC view,
+    which returns channels-last."""
+    if x.is_floating_point():
+        return F.interpolate(x, scale_factor=factor, mode="nearest")
+    b, c, h, w = x.shape
+    v = x.permute(0, 2, 3, 1)[:, :, None, :, None, :]
+    v = v.expand(b, h, factor, w, factor, c).reshape(b, h * factor,
+                                                     w * factor, c)
+    return v.permute(0, 3, 1, 2)
 
 
 def space_to_depth(x, block=2):

@@ -1,16 +1,22 @@
 """End-to-end detection in PyTorch: uint8 pixels to fixed-shape Detections.
 
-Counterpart of yolo_tensorflow_tpu/pipeline.py for the main path,
+Counterpart of yolo_tensorflow_tpu/pipeline.py. The main path,
 ``Detector.detect_batch``: normalize -> backbone (cuDNN convolutions,
 channels-last; or, for int8 params, the int8 conv kernel of
 ops/kernels/conv_int8.py) -> fused decode + score (the CUDA kernel of
-ops/kernels/decode.py for the v2 and v3 heads, plain PyTorch for v1's 98
-boxes) -> top-k + exact greedy NMS (the CUDA kernel of ops/kernels/nms.py)
--> Detections; and for the fused letterbox,
-``Detector(letterbox=True, fused=True).detect_batch_fused``: uint8 canvases
-of any image size -> letterbox (ops/preprocess.py) -> the same -> boxes in
-each image's own pixels. PyTorch runs it eagerly; there is no jit. On the
-card neither path reads anything back to the host.
+ops/kernels/decode.py for the v2 and v3 heads, with its bf16 scoring under
+``score_dtype=torch.bfloat16``; plain PyTorch for v1's 98 boxes) -> top-k +
+exact greedy NMS (the CUDA kernel of ops/kernels/nms.py) -> Detections.
+The fused letterbox, ``Detector(letterbox=True, fused=True)
+.detect_batch_fused``: uint8 canvases of any image size -> letterbox
+(ops/preprocess.py) -> the same -> boxes in each image's own pixels.
+Flip-TTA (``tta=True``, v2 and v3 heads, both ``tta_mode``s): the batch and
+its mirror through one doubled backbone, the activated head outputs
+averaged (models/heads.py), decoded without activating again, then NMS.
+Rolling-average smoothing (``Detector.detect_batch_smoothed``): each
+frame's activated head outputs averaged with the previous frames', the
+tails carried on the device between calls. PyTorch runs it eagerly; there
+is no jit. On the card no path reads anything back to the host.
 """
 
 from __future__ import annotations
@@ -23,15 +29,14 @@ import torch
 from yolo_tensorflow_tpu_torch import config as C
 from yolo_tensorflow_tpu_torch.io import weights as W
 from yolo_tensorflow_tpu_torch.models import engine, heads
+from yolo_tensorflow_tpu_torch.models import specs as S
 from yolo_tensorflow_tpu_torch.ops import preprocess as P
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
 from yolo_tensorflow_tpu_torch.post import nms as NMS
 
 # Detector options of the TPU package that this port does not have yet, and
 # the ROADMAP.md item that brings each
-_NOT_PORTED = {"tta": "TTA and smoothing", "tta_mode": "TTA and smoothing",
-               "score_dtype": "TTA and smoothing",
-               "mesh": "eval, serving, export and the CLI",
+_NOT_PORTED = {"mesh": "eval, serving, export and the CLI",
                "donate": "eval, serving, export and the CLI"}
 
 
@@ -77,37 +82,120 @@ def _nms_opts(cfg, max_detections, conf_threshold, iou_threshold,
     )
 
 
+def _check_tta(cfg, tta: bool, tta_mode: str):
+    if tta and cfg.head not in (2, 3):
+        raise ValueError("flip-TTA is a region/yolo-layer capability "
+                         "(get_region_detections region_layer.c:368; "
+                         "avg_flipped_yolo yolo_layer.c:290)")
+    if tta_mode not in ("darknet", "corrected"):
+        raise ValueError(f"tta_mode is 'darknet' or 'corrected', not "
+                         f"{tta_mode!r}")
+
+
+def activate_heads(dets, cfg):
+    """The activated output of every head in float32, the buffers darknet
+    averages: yolo layers (v3) and the region layer (v2) activated; the v1
+    detection layer's output is linear and taken as it is."""
+    if cfg.head == 3:
+        return [heads.activate_v3(feat, len(det.anchor_mask),
+                                  cfg.num_classes) for feat, det in dets]
+    if cfg.head == 2:
+        return [heads.activate_v2(feat, cfg) for feat, _ in dets]
+    return [feat.to(torch.float32) for feat, _ in dets]
+
+
+def flip_average(acts, batch: int, cfg, tta_mode: str):
+    """Activated outputs of a doubled batch (the images, then their
+    mirror) -> the flip-TTA average of each head, (batch, ...) each."""
+    if cfg.head == 3:
+        return [heads.yolo_flip_tta(a[:batch], a[batch:],
+                                    a.shape[-1] // (5 + cfg.num_classes),
+                                    cfg.num_classes, mode=tta_mode)
+                for a in acts]
+    return [heads.region_flip_tta(a[:batch], a[batch:], cfg, mode=tta_mode)
+            for a in acts]
+
+
+def decode_activated(acts, det_specs, cfg):
+    """Activated (averaged) head outputs -> (boxes_xyxy, scores, labels):
+    the shared tail of the flip-TTA and rolling-average paths. v3 scores
+    each scale as heads.decode_v3_scale_activated, v2 and v1 as the TPU
+    package's batched_nms scores a materialized decode
+    (``post.nms.score_classes``)."""
+    if cfg.head == 3:
+        parts = [heads.decode_v3_scale_activated(
+            act, [cfg.anchors[i] for i in det.anchor_mask], cfg.input_size,
+            cfg.num_classes) for act, det in zip(acts, det_specs)]
+        return (heads.xywh_to_xyxy(torch.cat([p[0] for p in parts], dim=1)),
+                torch.cat([p[1] for p in parts], dim=1),
+                torch.cat([p[2] for p in parts], dim=1))
+    (act,) = acts
+    decode = heads.decode_v2_activated if cfg.head == 2 else heads.decode_v1
+    boxes, conf, probs = decode(act, cfg)
+    return (heads.xywh_to_xyxy(boxes), *NMS.score_classes(conf, probs))
+
+
 def make_forward(cfg: C.ModelConfig, *, num_candidates: int = 256,
                  max_detections: Optional[int] = None,
                  conf_threshold: Optional[float] = None,
                  iou_threshold: Optional[float] = None,
-                 class_aware_nms: Optional[bool] = None):
+                 class_aware_nms: Optional[bool] = None,
+                 tta: bool = False, tta_mode: str = "darknet",
+                 score_dtype=None):
     """Build forward(network, uint8 images (B, S, S, 3)) -> Detections.
 
     Decode and scoring of the v2 and v3 heads always go through
     ``ops.kernels.decode.decode_fused``: the CUDA kernel on a CUDA input,
     its plain PyTorch version on a CPU one. (The TPU package's
     ``fused_decode=False`` default rests on a v5e timing that says nothing
-    about this card.) The v1 grid head (98 boxes an image) has no kernel,
-    in the TPU package either: it decodes through ``heads.decode_scored``."""
+    about this card.) ``score_dtype=torch.bfloat16`` scores the v3 head in
+    bf16 (the kernel's bf16 mode). The v1 grid head (98 boxes an image) has
+    no kernel, in the TPU package either: it decodes through
+    ``heads.decode_scored``.
+
+    ``tta=True`` (v2 and v3 heads; validate_detector_flip,
+    examples/detector.c:234): the images and their mirror run as one doubled
+    batch, each scale's activated outputs are averaged with ``tta_mode``
+    (heads.yolo_flip_tta / region_flip_tta) and decoded without activating
+    again (plain PyTorch, as on the TPU: the decode kernel takes raw
+    logits), then NMS; ``score_dtype`` does not apply, as in the TPU
+    package."""
     nms_kw = _nms_opts(cfg, max_detections, conf_threshold, iou_threshold,
                        class_aware_nms, num_candidates)
+    _check_tta(cfg, tta, tta_mode)
+    heads.check_score_dtype(score_dtype)
 
     def forward(network, images_uint8):
         x = normalize_images(images_uint8, cfg, network.dtype)
-        return _detect(network, x, cfg, nms_kw)
+        if tta:
+            return NMS.batched_nms_scored(
+                *tta_decode(network, x, cfg, tta_mode), **nms_kw)
+        return _detect(network, x, cfg, nms_kw, score_dtype)
 
     return forward
 
 
-def _detect(network, x, cfg, nms_kw) -> NMS.Detections:
+def _detect(network, x, cfg, nms_kw, score_dtype=None) -> NMS.Detections:
     """Backbone, decode and NMS of normalized input."""
     if cfg.head == 1:
         boxes, scores, labels = heads.decode_scored(network(x), cfg)
         boxes = heads.xywh_to_xyxy(boxes)
     else:
-        boxes, scores, labels = K.decode_fused(network(x), cfg)
+        boxes, scores, labels = K.decode_fused(network(x), cfg,
+                                               score_dtype=score_dtype)
     return NMS.batched_nms_scored(boxes, scores, labels, **nms_kw)
+
+
+def tta_decode(network, x, cfg, tta_mode):
+    """Flip-TTA of normalized input x (B, 3, S, S): one backbone over x and
+    its width mirror, the activated outputs averaged, decoded ->
+    (boxes_xyxy, scores, labels)."""
+    x2 = torch.cat([x, torch.flip(x, dims=[3])]).contiguous(
+        memory_format=torch.channels_last)
+    dets2 = network(x2)
+    avgs = flip_average(activate_heads(dets2, cfg), x.shape[0], cfg,
+                        tta_mode)
+    return decode_activated(avgs, [d for _, d in dets2], cfg)
 
 
 def make_forward_letterbox(cfg: C.ModelConfig, *, letterbox_dtype=None,
@@ -115,7 +203,9 @@ def make_forward_letterbox(cfg: C.ModelConfig, *, letterbox_dtype=None,
                            max_detections: Optional[int] = None,
                            conf_threshold: Optional[float] = None,
                            iou_threshold: Optional[float] = None,
-                           class_aware_nms: Optional[bool] = None):
+                           class_aware_nms: Optional[bool] = None,
+                           tta: bool = False, tta_mode: str = "darknet",
+                           score_dtype=None):
     """Build forward(network, uint8 canvases (B, Hc, Wc, 3), int32 sizes
     (B, 2) [h, w]) -> Detections whose boxes are in each image's own pixels.
 
@@ -123,9 +213,13 @@ def make_forward_letterbox(cfg: C.ModelConfig, *, letterbox_dtype=None,
     normalization folded in; ``letterbox_dtype=torch.bfloat16`` is its
     serving form), then ``make_forward``'s backbone, decode and NMS, then
     the box un-mapping, all on the canvases' device: the host only copies
-    pixels into the canvases."""
+    pixels into the canvases. ``tta=True`` mirrors the letterboxed tensor
+    (pad columns and all, as validate_detector_flip flips the letterboxed
+    image) and averages as ``make_forward`` does; the boxes un-map once."""
     nms_kw = _nms_opts(cfg, max_detections, conf_threshold, iou_threshold,
                        class_aware_nms, num_candidates)
+    _check_tta(cfg, tta, tta_mode)
+    heads.check_score_dtype(score_dtype)
     rescale, offset = normalization_fold(cfg)
     size = cfg.input_size
 
@@ -133,11 +227,80 @@ def make_forward_letterbox(cfg: C.ModelConfig, *, letterbox_dtype=None,
         x = P.letterbox_device_batch(canvas_uint8, sizes, size,
                                      compute_dtype=letterbox_dtype,
                                      rescale=rescale, offset=offset)
-        out = _detect(network, x, cfg, nms_kw)
+        if tta:
+            out = NMS.batched_nms_scored(*tta_decode(
+                network, x.to(network.dtype), cfg, tta_mode), **nms_kw)
+        else:
+            out = _detect(network, x, cfg, nms_kw, score_dtype)
         return out._replace(boxes=P.unmap_boxes_device(
             out.boxes, sizes[:, 0], sizes[:, 1], size))
 
     return forward
+
+
+def make_forward_smoothed(cfg: C.ModelConfig, avg_frames: int, *,
+                          num_candidates: int = 256,
+                          max_detections: Optional[int] = None,
+                          conf_threshold: Optional[float] = None,
+                          iou_threshold: Optional[float] = None,
+                          class_aware_nms: Optional[bool] = None):
+    """Build forward(network, uint8 images (B, S, S, 3), tails) ->
+    (Detections, new_tails): demo.c's rolling prediction average
+    (src/demo.c:31,67-78, demo_frame = 3). Frame j of the batch is decoded
+    from the mean of the activated head outputs of frames j - N + 1 .. j,
+    N = ``avg_frames``; ``tails`` holds the previous N - 1 frames' activated
+    outputs per head (``smooth_state_shapes``: zeros at the start, as
+    darknet's calloc'd buffers), so the average slides across batches.
+    The tails stay on the network's device.
+
+    The mean is ``sliding_mean``'s."""
+    nms_kw = _nms_opts(cfg, max_detections, conf_threshold, iou_threshold,
+                       class_aware_nms, num_candidates)
+    N = int(avg_frames)
+    if N < 2:
+        raise ValueError("avg_frames must be >= 2 (darknet demo_frame=3)")
+    if cfg.head not in (1, 2, 3):
+        raise ValueError("rolling prediction average applies to detection "
+                         "heads (demo.c averages YOLO/REGION/DETECTION "
+                         "layer outputs only)")
+
+    def forward(network, images_uint8, tails):
+        x = normalize_images(images_uint8, cfg, network.dtype)
+        dets = network(x)
+        full = [torch.cat([t, a])
+                for t, a in zip(tails, activate_heads(dets, cfg))]
+        B = images_uint8.shape[0]
+        smoothed = [sliding_mean(f, B, N) for f in full]
+        out = NMS.batched_nms_scored(*decode_activated(
+            smoothed, [d for _, d in dets], cfg), **nms_kw)
+        new_tails = tuple(f[B:] for f in full)
+        return out, new_tails
+
+    return forward
+
+
+def sliding_mean(frames, batch: int, n: int):
+    """frames (n - 1 + batch, ...) -> (batch, ...): frame j the mean of
+    frames j .. j + n - 1. As the TPU package computes it on its CPU
+    backend: the n slices summed left to right, then times f32(1 / n) (XLA
+    compiles the ``/ n`` into that multiply)."""
+    total = frames[0:batch]
+    for k in range(1, n):
+        total = total + frames[k:k + batch]
+    return total * torch.tensor(float(np.float32(1.0) / np.float32(n)),
+                                dtype=torch.float32)
+
+
+def smooth_state_shapes(cfg: C.ModelConfig, specs, batch_size: int,
+                        avg_frames: int, device="cpu"):
+    """Zero initial tails for ``make_forward_smoothed``: per detection
+    head, one float32 tensor on ``device`` of N - 1 frames of the head
+    output's shape past the batch (NHWC, or features for v1)."""
+    shapes = engine.infer_shapes(
+        specs, (batch_size, cfg.input_size, cfg.input_size, 3))
+    return tuple(torch.zeros((avg_frames - 1,) + tuple(shapes[i][1:]),
+                             dtype=torch.float32, device=device)
+                 for i, sp in enumerate(specs) if isinstance(sp, S.Detect))
 
 
 class Detector:
@@ -157,12 +320,22 @@ class Detector:
     image's own pixels. ``letterbox_dtype`` defaults to bfloat16 where the
     model computes narrow (bf16 compute or int8 params), as in the TPU
     package; ``torch.float32`` is the darknet-exact form. (``fused`` without
-    ``letterbox`` is ignored, as in the TPU package.)"""
+    ``letterbox`` is ignored, as in the TPU package.)
+
+    ``tta=True`` with ``tta_mode`` 'darknet' or 'corrected': flip-TTA on
+    both paths (``make_forward``); ``score_dtype=torch.bfloat16``: bf16
+    scoring of the v3 head. ``fused_decode`` is accepted and ignored: the
+    port always decodes through the kernel, which at float32 equals the TPU
+    package's XLA decode. ``detect_batch_smoothed`` is the rolling-average
+    streaming path."""
 
     def __init__(self, model, weights_path: Optional[str] = None, *,
                  params=None, device="cuda", compute_dtype=None,
                  letterbox: bool = False, fused: bool = False,
-                 letterbox_dtype=None, **overrides):
+                 letterbox_dtype=None, tta: bool = False,
+                 tta_mode: str = "darknet", score_dtype=None,
+                 fused_decode: Optional[bool] = None, **overrides):
+        del fused_decode      # both values decode through the kernel
         for key, item in _NOT_PORTED.items():
             if overrides.pop(key, None):
                 raise NotImplementedError(
@@ -183,6 +356,8 @@ class Detector:
                     "iou_threshold", "class_aware_nms")
         nms_kwargs = {k: overrides.pop(k) for k in nms_keys
                       if k in overrides}
+        self._nms_kwargs = dict(nms_kwargs)
+        self._smooth_forwards = {}
         specs = overrides.pop("specs", None)
         if isinstance(model, C.ModelConfig):
             self.cfg = model
@@ -197,7 +372,8 @@ class Detector:
                 self.specs, self.cfg.input_size, weights_path)
         self.network = engine.Network(self.specs, params, device=self.device,
                                       dtype=compute_dtype or torch.float32)
-        self._forward = make_forward(self.cfg, **nms_kwargs)
+        head_kw = dict(tta=tta, tta_mode=tta_mode, score_dtype=score_dtype)
+        self._forward = make_forward(self.cfg, **head_kw, **nms_kwargs)
         if self.fused:
             narrow = (self.network.dtype != torch.float32
                       or any(isinstance(p, dict) and "w_q" in p
@@ -206,7 +382,8 @@ class Detector:
                 letterbox_dtype = torch.bfloat16
             self.letterbox_dtype = letterbox_dtype
             self._forward_fused = make_forward_letterbox(
-                self.cfg, letterbox_dtype=letterbox_dtype, **nms_kwargs)
+                self.cfg, letterbox_dtype=letterbox_dtype, **head_kw,
+                **nms_kwargs)
 
     def detect_batch(self, images_uint8) -> NMS.Detections:
         """images_uint8: (B, S, S, 3) uint8 (numpy or tensor) already sized
@@ -214,6 +391,24 @@ class Detector:
         x = torch.as_tensor(images_uint8).to(self.device)
         with torch.inference_mode():
             return self._forward(self.network, x)
+
+    def detect_batch_smoothed(self, images_uint8, state=None, *,
+                              avg_frames: int = 3):
+        """Rolling-average streaming detection (demo.c:67-78
+        avg_predictions): each frame decoded from the mean of the last
+        ``avg_frames`` frames' activated head outputs. ``state`` carries the
+        tail frames across calls (None: zeros, darknet's calloc'd buffers);
+        frames must be consecutive in batch order. Returns (Detections,
+        new_state), both on the Detector's device."""
+        if avg_frames not in self._smooth_forwards:
+            self._smooth_forwards[avg_frames] = make_forward_smoothed(
+                self.cfg, avg_frames, **self._nms_kwargs)
+        x = torch.as_tensor(images_uint8).to(self.device)
+        if state is None:
+            state = smooth_state_shapes(self.cfg, self.specs, x.shape[0],
+                                        avg_frames, device=self.device)
+        with torch.inference_mode():
+            return self._smooth_forwards[avg_frames](self.network, x, state)
 
     def detect_batch_fused(self, canvas_uint8, sizes) -> NMS.Detections:
         """Fused letterbox serving: uint8 canvases (B, Hc, Wc, 3) (numpy or
