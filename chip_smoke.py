@@ -112,12 +112,40 @@ failure is caught):
              quantize pass); batch-64 img/s and backbone ms beside phase
              7's mixed int8; per shape at batch 64 the entry's ms beside the
              mixed kernel's, its plain ms and its bound.
-Then a JSON line describing each kernel, and last the JSON result line.
+ 19. bnstat darknet19 (A): the fused conv + BN-statistics kernel against
+             its plain version, f32 and bf16 at TRAIN_BATCH, at every
+             distinct 3x3 stride-1 BN conv of yolov2 at 416 (the 1280 ->
+             1024 conv after the reorg + route among them), 320 and 608
+             (multi-scale's ends, grids 10 and 19) and of darknet19-256;
+             yolov2-416's bf16 shapes timed (kernel, bound, plain, cuDNN's
+             conv + two sums, summed over a training forward);
+ 20. f32 train families (B): one f32 onepass step at batch 2 on the card
+             against the CPU port, as phase 9: yolov2-416 with darknet's
+             region loss at seen 0 (the warm-up on) and 12800, then one
+             darknet-Adam update from the same gradients; yolov1-448 with
+             dropout rate 0 (connected head); darknet19-256 (softmax
+             cross-entropy);
+ 21. bf16 train families (C): bf16 onepass training of yolov2-416 and
+             yolov1-448 (dropout on) at batch 32 and darknet19-256 at 64:
+             img/s, the step split (the loss part is the region loss's ms
+             for yolov2), peak memory, conv_bnstat launches, one step under
+             set_sync_debug_mode("error");
+ 22. run_training (D): the trainer end to end on yolov2-416 from a .cfg
+             written by specs_to_cfg (random=1: multi-scale) and seeded
+             .weights, bf16 onepass, batch 32, 64 synthetic 480x640 scenes
+             through read_fn and the native pixel kernel
+             (YOLO_NATIVE_LOADER=1): 30 steps, a checkpoint every 10, then a
+             second call resumes to step 40; img/s with the loader in the
+             loop and the card's idle share.
+Then a JSON line describing each kernel (conv3x3_bnstat's launches: one
+step each of phase 10 and of phase 21's yolov2 and darknet19), and last the
+JSON result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
 weights in the repository), at full width and depth: Darknet-53 + FPN
-(yolov3), Darknet-19 + passthrough (yolov2), 80 classes each, and the
-24-conv + 3-connected yolov1 with 20.
+(yolov3), Darknet-19 + passthrough (yolov2), 80 classes each, the
+24-conv + 3-connected yolov1 with 20, and the darknet19 classifier with
+1000.
 Imports nothing of JAX: the machine with the card has none.
 """
 
@@ -216,6 +244,10 @@ BNSTAT_PROBE_BATCH = 128  # tools/probe_conv_bnstat.py's batch
 TRAIN_PARITY_BATCH = 2   # phase 9
 TRAIN_BATCH = 32         # phase 10: tools/bench_train.py's default batch
 TRUTHS = (30, 8)         # truth slots per image, valid ones (bench_train)
+CLS_BATCH = 64           # phase 21: darknet19-256's training batch
+RUN_BATCH = 32           # phase 22: run_training's batch ([net] batch=)
+RUN_SCENES = 64          # phase 22: synthetic 480x640 scenes
+MULTISCALE_ENDS = (320, 608)   # phase 19: the ends of multi-scale's sizes
 # conv_bnstat, kernel vs plain, relative to the largest |y| or per channel.
 # y: f32 sums in another order (measured <= 3e-6); bf16 rounds two
 # accumulators that differ by order, so at most 1 ulp (2**-7 of |y|) apart.
@@ -1043,38 +1075,73 @@ def rel_l2(a, b):
     return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
 
-def train_parity_phase(cfg, specs, params, stats, n_fused, dev):
-    """Phase 9. The f32 onepass step on the card against the CPU port."""
+def grad_floor_check(label, names, g_card, g_alt, g_cpu):
+    """Each of ``names`` ((layer, leaf)) of the card's gradients within
+    GRAD_FLOOR of the CPU's, against the distance of the card's cuDNN path
+    (``g_alt``) from the CPU. Returns a summary for the phase's line."""
+    errs = [rel_l2(g_card[k][n], g_cpu[k][n]) for k, n in names]
+    floors = [rel_l2(g_alt[k][n], g_cpu[k][n]) for k, n in names]
+    mid = statistics.median(floors)
+    ratios = [e / max(f, mid, 1e-30) for e, f in zip(errs, floors)]
+    worst = max(range(len(names)), key=ratios.__getitem__)
+    for (k, n), e, f in zip(names, errs, floors):
+        require(e <= GRAD_FLOOR[0] * max(f, mid) + GRAD_FLOOR[1],
+                f"{label}: gradient {k}/{n}: relative L2 {e:.3g} from the "
+                f"CPU, against {f:.3g} for the cuDNN path (median {mid:.3g})")
+    flat = lambda g: torch.cat([g[k][n].flatten() for k, n in names])
+    e_all = rel_l2(flat(g_card), flat(g_cpu))
+    f_all = rel_l2(flat(g_alt), flat(g_cpu))
+    require(e_all <= GRAD_FLOOR[0] * f_all + GRAD_FLOOR[1],
+            f"{label}: all gradients: relative L2 {e_all:.3g} against "
+            f"{f_all:.3g}")
+    return (f"relative L2 per parameter: kernel path median "
+            f"{statistics.median(errs):.3g}, max {max(errs):.3g}; cuDNN "
+            f"path median {statistics.median(floors):.3g}, max "
+            f"{max(floors):.3g}; all parameters {e_all:.3g} vs {f_all:.3g}; "
+            f"ratio to the floor median {statistics.median(ratios):.2f}, "
+            f"max {ratios[worst]:.2f} at {'/'.join(names[worst])} (limit "
+            f"{GRAD_FLOOR[0]} x + {GRAD_FLOOR[1]})")
+
+
+def train_parity(label, cfg, specs, params, stats, n_fused, dev, *,
+                 imgs, tr, seen=0, **loss_kw):
+    """One f32 onepass train step on the card against the CPU port from the
+    same seeded state: make_train_step's conv_bnstat launches counted (its
+    step counter set so that seen = step * batch), then cost, metrics and
+    batch statistics within TRAIN_TOL and every gradient within GRAD_FLOOR
+    of the CPU's. Returns (launches, card, cuDNN-path and CPU gradients)."""
     from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
     from yolo_tensorflow_tpu_torch.train import loop as TL
-    imgs, tr = train_inputs(cfg, TRAIN_PARITY_BATCH, SEED + 9)
-    kw = dict(bn_stats="onepass")
+    kw = dict(bn_stats="onepass", **loss_kw)
+    tx = lambda: TL.make_optimizer(TL.darknet_lr_schedule(1e-3,
+                                                          burn_in=1000))
 
     def grads_on(device):
-        tx = TL.make_optimizer(TL.darknet_lr_schedule(1e-3, burn_in=1000))
-        st = TL.create_train_state(cfg, tx, device=device, params=params,
-                                   batch_stats=stats)
+        st = TL.create_train_state(cfg, tx(), device=device, params=params,
+                                   batch_stats=stats, specs=specs)
         g, new, m = TL.loss_and_grads(
             cfg, specs, st.network, torch.as_tensor(imgs, device=device),
-            torch.as_tensor(tr, device=device), **kw)
+            torch.as_tensor(tr, device=device), seen=torch.tensor(seen),
+            generator=st.generator, **kw)
         return ({k: {n: v.cpu() for n, v in p.items()} for k, p in g.items()},
                 {k: {n: v.cpu() for n, v in p.items()} for k, p in
                  new.items()}, {k: float(v) for k, v in m.items()})
 
     # the entry point a user calls, with the kernel's launches counted
-    tx = TL.make_optimizer(TL.darknet_lr_schedule(1e-3, burn_in=1000))
-    state = TL.create_train_state(cfg, tx, device=dev, params=params,
-                                  batch_stats=stats)
-    step = TL.make_train_step(cfg, tx, **kw)
+    opt = tx()
+    state = TL.create_train_state(cfg, opt, device=dev, params=params,
+                                  batch_stats=stats, specs=specs)
+    state.step.fill_(seen // len(imgs))
+    step = TL.make_train_step(cfg, opt, specs=specs, **kw)
     torch.cuda.synchronize()
     BS.launches = 0
     state, m = step(state, imgs, tr)
     torch.cuda.synchronize()
     launches = BS.launches
     require(launches == n_fused and np.isfinite(float(m["cost"])),
-            f"f32 train step launched conv_bnstat {launches} times (expected "
-            f"{n_fused}), cost {float(m['cost'])}")
+            f"{label}: make_train_step launched conv_bnstat {launches} times "
+            f"(expected {n_fused}), cost {float(m['cost'])}")
     del state, step
 
     t0 = time.perf_counter()
@@ -1090,76 +1157,71 @@ def train_parity_phase(cfg, specs, params, stats, n_fused, dev):
     cpu_s = time.perf_counter() - t1
     for key, want in m_cpu.items():
         np.testing.assert_allclose(m_card[key], want, rtol=TRAIN_TOL["rtol"],
-                                   err_msg=f"f32 train metric {key}")
+                                   err_msg=f"{label}: metric {key}")
     st_err = 0.0
     for k, d in st_cpu.items():
         for n, want in d.items():
             err = (st_card[k][n] - want).abs().max().item()
             lim = TRAIN_TOL["rtol"] * want.abs().max().item() \
                 + TRAIN_TOL["atol"]
-            require(err <= lim, f"batch stat {k}/{n}: |err| {err:.3g} > "
-                    f"{lim:.3g}")
+            require(err <= lim, f"{label}: batch stat {k}/{n}: |err| "
+                    f"{err:.3g} > {lim:.3g}")
             st_err = max(st_err, err / max(want.abs().max().item(), 1e-12))
     names = [(k, n) for k in sorted(g_cpu) for n in sorted(g_cpu[k])]
-    errs = [rel_l2(g_card[k][n], g_cpu[k][n]) for k, n in names]
-    floors = [rel_l2(g_alt[k][n], g_cpu[k][n]) for k, n in names]
-    mid = statistics.median(floors)
-    ratios = [e / max(f, mid) for e, f in zip(errs, floors)]
-    worst = max(range(len(names)), key=ratios.__getitem__)
-    for (k, n), e, f in zip(names, errs, floors):
-        require(e <= GRAD_FLOOR[0] * max(f, mid) + GRAD_FLOOR[1],
-                f"gradient {k}/{n}: relative L2 {e:.3g} from the CPU, "
-                f"against {f:.3g} for the cuDNN path (median {mid:.3g})")
-    flat = lambda g: torch.cat([g[k][n].flatten() for k, n in names])
-    e_all = rel_l2(flat(g_card), flat(g_cpu))
-    f_all = rel_l2(flat(g_alt), flat(g_cpu))
-    require(e_all <= GRAD_FLOOR[0] * f_all + GRAD_FLOOR[1],
-            f"all gradients: relative L2 {e_all:.3g} against {f_all:.3g}")
-    print(f"[9 f32 train] {MODEL}-416 B={TRAIN_PARITY_BATCH} onepass: "
-          f"make_train_step launched conv_bnstat {launches} times (one per "
-          f"fused conv); card vs CPU port ({cpu_s:.1f} s on the CPU, "
-          f"{t1 - t0:.1f} s for both card passes): cost {m_card['cost']:.6g} "
-          f"vs {m_cpu['cost']:.6g}, metrics within rtol "
-          f"{TRAIN_TOL['rtol']}; batch stats within {st_err:.2g} of each "
-          f"leaf's max; gradients, relative L2 per parameter: kernel path "
-          f"median {statistics.median(errs):.3g}, max {max(errs):.3g}; "
-          f"cuDNN path median {statistics.median(floors):.3g}, max "
-          f"{max(floors):.3g}; all parameters {e_all:.3g} vs {f_all:.3g}; "
-          f"ratio to the floor median {statistics.median(ratios):.2f}, max "
-          f"{ratios[worst]:.2f} at {'/'.join(names[worst])} (limit "
-          f"{GRAD_FLOOR[0]} x + {GRAD_FLOOR[1]})")
-    return launches
+    summary = grad_floor_check(label, names, g_card, g_alt, g_cpu)
+    print(f"[{label}] {cfg.name}-{cfg.input_size} B={len(imgs)} onepass, "
+          f"seen {seen}: make_train_step "
+          f"launched conv_bnstat {launches} times (one per fused conv); "
+          f"card vs CPU port ({cpu_s:.1f} s on the CPU, {t1 - t0:.1f} s for "
+          f"both card passes): cost {m_card['cost']:.6g} vs "
+          f"{m_cpu['cost']:.6g}, metrics within rtol {TRAIN_TOL['rtol']}; "
+          f"batch stats within {st_err:.2g} of each leaf's max; gradients, "
+          f"{summary}")
+    return launches, g_card, g_alt, g_cpu
 
 
-def train_bf16_phase(cfg, specs, params, stats, dev, n_fused, smi):
-    """Phase 10. bf16 training throughput at TRAIN_BATCH."""
+def train_rate(label, cfg, specs, params, stats, dev, n_fused, smi, *,
+               batch, seed, sync_check=False, **step_kw):
+    """bf16 onepass training throughput at ``batch``: img/s as the median
+    of 3 samples of 5 steps, the step split from CUDA events, peak memory,
+    conv_bnstat launches of one step, a finite cost at every step; with
+    ``sync_check`` one step under set_sync_debug_mode("error"). Returns
+    (launches, the split's dict, median img/s, peak GiB)."""
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
     from yolo_tensorflow_tpu_torch.train import loop as TL
-    imgs, tr = train_inputs(cfg, TRAIN_BATCH, SEED + 10)
+    imgs, tr = train_inputs(cfg, batch, seed)
+    if cfg.head == 0:
+        tr = tr[:, 0, 4]                      # the classifier's labels
     imgs, tr = torch.as_tensor(imgs, device=dev), torch.as_tensor(tr,
                                                                   device=dev)
     tx = TL.make_optimizer(TL.darknet_lr_schedule(1e-3, burn_in=1000))
     state = TL.create_train_state(cfg, tx, device=dev, params=params,
-                                  batch_stats=stats)
+                                  batch_stats=stats, specs=specs)
     events = []
 
     def mark(name):
         events.append((name, torch.cuda.Event(enable_timing=True)))
         events[-1][1].record()
 
-    step = TL.make_train_step(cfg, tx, compute_dtype=torch.bfloat16,
-                              bn_stats="onepass", marks=mark)
+    step = TL.make_train_step(cfg, tx, specs=specs,
+                              compute_dtype=torch.bfloat16,
+                              bn_stats="onepass", marks=mark, **step_kw)
     costs = []
     for _ in range(2):                          # warm-up
         state, m = step(state, imgs, tr)
         costs.append(m["cost"])
     torch.cuda.synchronize()
     BS.launches = 0
-    state, m = step(state, imgs, tr)            # the counted step
+    if sync_check:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, imgs, tr)        # the counted step
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     costs.append(m["cost"])
     torch.cuda.synchronize()
     launches = BS.launches
-    require(launches == n_fused, f"bf16 train step launched conv_bnstat "
+    require(launches == n_fused, f"{label}: one step launched conv_bnstat "
             f"{launches} times, expected {n_fused}")
     torch.cuda.reset_peak_memory_stats()
     events.clear()
@@ -1179,19 +1241,371 @@ def train_bf16_phase(cfg, specs, params, stats, dev, n_fused, smi):
         if name != "start":
             split[name] += a.elapsed_time(b) / 15
     costs = torch.stack(costs).cpu().numpy()
-    require(np.all(np.isfinite(costs)), f"bf16 train cost not finite: "
+    require(np.all(np.isfinite(costs)), f"{label}: cost not finite: "
             f"{costs}")
-    rates = sorted(TRAIN_BATCH * 1e3 / ms for ms in step_ms)
-    print(f"[10 bf16 train] {MODEL}-416 B={TRAIN_BATCH} onepass, images on "
-          f"the card: {statistics.median(rates):.1f} img/s median of 3 x 5 "
-          f"steps (spread {rates[0]:.1f}..{rates[-1]:.1f}), step "
-          f"{statistics.median(step_ms):.2f} ms = forward "
-          f"{split['forward']:.2f} + loss {split['loss']:.2f} + backward "
-          f"{split['backward']:.2f} + optimizer {split['optimizer']:.2f} ms "
-          f"(CUDA events); {launches} conv_bnstat launches per step; peak "
-          f"memory {peak:.2f} GiB; cost finite at all {len(costs)} steps, "
-          f"{costs[0]:.5g} -> {costs[-1]:.5g}; on {smi}")
+    rates = sorted(batch * 1e3 / ms for ms in step_ms)
+    rate = statistics.median(rates)
+    print(f"[{label}] {cfg.name}-{cfg.input_size} B={batch} onepass, "
+          f"images on the card: {rate:.1f} "
+          f"img/s median of 3 x 5 steps (spread {rates[0]:.1f}.."
+          f"{rates[-1]:.1f}), step {statistics.median(step_ms):.2f} ms = "
+          f"forward {split['forward']:.2f} + loss {split['loss']:.2f} + "
+          f"backward {split['backward']:.2f} + optimizer "
+          f"{split['optimizer']:.2f} ms (CUDA events); {launches} "
+          f"conv_bnstat launches per step"
+          + ("; one step under set_sync_debug_mode('error'): no host sync"
+             if sync_check else "")
+          + f"; peak memory {peak:.2f} GiB; cost finite at all "
+          f"{len(costs)} steps, {costs[0]:.5g} -> {costs[-1]:.5g}; on {smi}")
+    return launches, dict(split), rate, peak
+
+
+def darknet19_bnstat_phase(dev):
+    """Phase 19 (A). conv_bnstat against its plain version at Darknet-19's
+    shapes: every distinct 3x3 stride-1 BN conv of yolov2 at 416 (the
+    1280 -> 1024 conv after the route among them) and at multi-scale's ends
+    320 and 608 (grids 10 and 19), and of darknet19-256, at TRAIN_BATCH,
+    f32 and bf16. yolov2-416's bf16 shapes are timed: kernel, bound, plain
+    and cuDNN's conv + two sums, summed over a training forward's
+    launches."""
+    import dataclasses
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    v2, cls = C.get_config("yolov2"), C.get_config("darknet19-classifier")
+    v2_specs, cls_specs = C.build_specs(v2), C.build_specs(cls)
+    groups = [("yolov2-416", bnstat_shapes(v2_specs, v2))] + [
+        (f"yolov2-{s}", bnstat_shapes(v2_specs, dataclasses.replace(
+            v2, input_size=s))) for s in MULTISCALE_ENDS] + [
+        ("darknet19-256", bnstat_shapes(cls_specs, cls))]
+    require(any(cin == 1280 for _, cin, _ in groups[0][1]),
+            "yolov2-416 has no 1280 -> 1024 conv after the route")
+    max_err, cases, tot = 0.0, 0, collections.Counter()
+    used = collections.Counter()
+    for name, shapes in groups:
+        timed = name == "yolov2-416"
+        for (h, cin, cout), n in sorted(shapes.items(),
+                                        key=lambda kv: -kv[0][0]):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w, nbytes, flops, library = bnstat_case(
+                    gen, dev, TRAIN_BATCH, h, cin, cout, dtype)
+                instance, bn = BS.plan(x, w)
+                label = (f"{name} B={TRAIN_BATCH} {h}^2 {cin}->{cout} "
+                         f"{str(dtype)[6:]} {instance} BN={bn}")
+                err, s_err, q_err = bnstat_check(
+                    label, BS.conv3x3_bnstat_forward(x, w),
+                    BS.conv3x3_bnstat_plain(x, w), dtype,
+                    TRAIN_BATCH * h * h)
+                max_err, cases = max(max_err, err), cases + 1
+                used[(instance, bn)] += 1
+                if timed and dtype == torch.bfloat16:
+                    ms = cuda_ms(lambda: BS.conv3x3_bnstat_forward(x, w),
+                                 iters=10)
+                    plain = cuda_ms(lambda: BS.conv3x3_bnstat_plain(x, w),
+                                    iters=2, warmup=1)
+                    lib = cuda_ms(library, iters=10)
+                    bnd, by = bound_ms(nbytes, flops, BF16_OPS_S)
+                    print(f"[19 bnstat darknet19] {label} x{n}: equal to "
+                          f"plain (max |y err| {err:.3g}, sum {s_err:.2g}, "
+                          f"sumsq {q_err:.2g}); kernel {ms:.4f} ms "
+                          f"({flops / ms / 1e9:.1f} TFLOP/s), bound "
+                          f"{bnd:.4f} ms ({by}), plain {plain:.3f} ms, "
+                          f"cuDNN conv + 2 sums {lib:.4f} ms")
+                    for key, v in (("ms", ms), ("plain", plain),
+                                   ("lib", lib), ("bound", bnd),
+                                   (f"bound_{by}", bnd), ("flops", flops)):
+                        tot[key] += n * v
+                del x, w
+    print(f"[19 bnstat darknet19] {cases} cases (yolov2 at 320, 416 and "
+          f"608, darknet19-256; f32 and bf16) equal to plain within "
+          f"BNSTAT_TOL, max |y err| {max_err:.3g}; (instance, BN) taken: "
+          f"{dict(used)}")
+    n = sum(groups[0][1].values())
+    print(f"[19 bnstat darknet19] per yolov2-416 training forward at "
+          f"B={TRAIN_BATCH} bf16, summed over the {n} fused convs "
+          f"({tot['flops'] / 1e12:.3f} TFLOP): kernel {tot['ms']:.3f} ms "
+          f"({tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s), bound "
+          f"{tot['bound']:.3f} ms (bytes-bound convs "
+          f"{tot['bound_bytes']:.3f}, operations-bound "
+          f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms, "
+          f"cuDNN conv + 2 sums {tot['lib']:.3f} ms")
+
+
+def family_model(name, seed, dropout=None):
+    """(cfg, specs, params, stats, fused convs) of a zoo model with seeded
+    parameters; ``dropout`` replaces the Dropout layers' rate."""
+    import dataclasses
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.models import specs as S
+    cfg = C.get_config(name)
+    specs = C.build_specs(cfg)
+    if dropout is not None:
+        specs = tuple(dataclasses.replace(sp, rate=dropout)
+                      if isinstance(sp, S.Dropout) else sp for sp in specs)
+    params, stats = engine.init_params(specs, cfg.input_size, seed)
+    return cfg, specs, params, stats, sum(bnstat_shapes(specs, cfg).values())
+
+
+def adam_parity(label, cfg, specs, params, stats, grads, dev):
+    """One darknet-Adam update from the same state with each of ``grads``
+    = (card kernel path, card cuDNN path, CPU): the first moment and the
+    parameter change of the kernel path within GRAD_FLOOR of the CPU's,
+    against the cuDNN path's distance; every change at most the rate."""
+    from yolo_tensorflow_tpu_torch.train import loop as TL
+    rate = 1e-3
+    out = []
+    for g, device in zip(grads, (dev, dev, "cpu")):
+        tx = TL.darknet_adam(lambda s: torch.full((), rate, device=s.device),
+                             decay=5e-4, batch=TRAIN_PARITY_BATCH)
+        st = TL.create_train_state(cfg, tx, device=device, params=params,
+                                   batch_stats=stats, specs=specs)
+        before = {k: {n: v.detach().clone() for n, v in p.items()}
+                  for k, p in st.params.items()}
+        opt = tx.apply_(st.params, {k: {n: v.to(device) for n, v in
+                                        p.items()} for k, p in g.items()},
+                        st.opt_state)
+        require(int(opt.count) == 1, f"{label}: Adam count {opt.count}")
+        out.append(({k: {n: v.cpu() for n, v in p.items()}
+                     for k, p in opt.m.items()},
+                    {k: {n: (v.detach() - before[k][n]).cpu()
+                         for n, v in p.items()}
+                     for k, p in st.params.items()}))
+    names = [(k, n) for k in sorted(out[2][0]) for n in sorted(out[2][0][k])]
+    biggest = max(d[k][n].abs().max().item() for _, d in out
+                  for k, n in names)
+    require(biggest <= rate * (1 + 1e-3), f"{label}: an Adam step of "
+            f"{biggest:.3g} exceeds the rate {rate}")
+    m_sum = grad_floor_check(f"{label} Adam m", names,
+                             *(m for m, _ in out))
+    d_sum = grad_floor_check(f"{label} Adam step", names,
+                             *(d for _, d in out))
+    print(f"[{label}] {cfg.name}-{cfg.input_size} one darknet-Adam update "
+          f"(batch {TRAIN_PARITY_BATCH}, decay 5e-4, rate {rate}) from the "
+          f"same grads: largest step {biggest:.4g}; first moment, {m_sum}; "
+          f"parameter step, {d_sum}")
+
+
+def families_train_parity_phase(dev):
+    """Phase 20 (B). f32 onepass steps of yolov2-416 (region loss, seen 0
+    and 12800, then one darknet-Adam update), yolov1-448 (dropout rate 0)
+    and darknet19-256 on the card against the CPU port, at
+    TRAIN_PARITY_BATCH, as phase 9. Returns the conv_bnstat launches of
+    the counted steps."""
+    launches = {}
+    cfg, specs, params, stats, n_fused = family_model("yolov2", SEED + 20)
+    imgs, tr = train_inputs(cfg, TRAIN_PARITY_BATCH, SEED + 20)
+    for seen in (0, 12800):
+        n, g_card, g_alt, g_cpu = train_parity(
+            "20 f32 train", cfg, specs, params, stats, n_fused, dev,
+            imgs=imgs, tr=tr, seen=seen)
+        if seen == 0:
+            adam_parity("20 f32 train", cfg, specs, params, stats,
+                        (g_card, g_alt, g_cpu), dev)
+        del g_card, g_alt, g_cpu
+    launches["yolov2"] = n
+    cfg, specs, params, stats, n_fused = family_model("yolov1", SEED + 20,
+                                                      dropout=0.0)
+    imgs, tr = train_inputs(cfg, TRAIN_PARITY_BATCH, SEED + 20)
+    launches["yolov1"] = train_parity("20 f32 train", cfg, specs, params,
+                                      stats, n_fused, dev, imgs=imgs,
+                                      tr=tr)[0]
+    cfg, specs, params, stats, n_fused = family_model(
+        "darknet19-classifier", SEED + 20)
+    imgs, tr = train_inputs(cfg, TRAIN_PARITY_BATCH, SEED + 20)
+    launches["darknet19"] = train_parity("20 f32 train", cfg, specs, params,
+                                         stats, n_fused, dev, imgs=imgs,
+                                         tr=tr[:, 0, 4])[0]
     return launches
+
+
+def families_train_rate_phase(dev, smi):
+    """Phase 21 (C). bf16 onepass training of yolov2-416 and yolov1-448
+    (dropout on) at TRAIN_BATCH and darknet19-256 at CLS_BATCH, one step of
+    each under set_sync_debug_mode("error"). Returns {model: (conv_bnstat
+    launches of one step, split, img/s, peak GiB)}."""
+    out = {}
+    for name, batch in (("yolov2", TRAIN_BATCH), ("yolov1", TRAIN_BATCH),
+                        ("darknet19-classifier", CLS_BATCH)):
+        cfg, specs, params, stats, n_fused = family_model(name, SEED + 21)
+        out[name] = train_rate("21 bf16 train", cfg, specs, params, stats,
+                               dev, n_fused, smi, batch=batch,
+                               seed=SEED + 21, sync_check=True)
+        del params, stats
+        torch.cuda.empty_cache()
+    return out
+
+
+def scenes(n, seed):
+    """n synthetic 480x640 RGB scenes of numpy rectangles on a noisy
+    background and their darknet label lines (class cx cy w h)."""
+    rng = np.random.default_rng(seed)
+    imgs, labels = [], []
+    for _ in range(n):
+        img = rng.integers(0, 64, (480, 640, 3), dtype=np.uint8)
+        rows = []
+        for _ in range(int(rng.integers(1, 6))):
+            w, h = int(rng.integers(40, 320)), int(rng.integers(40, 240))
+            x0 = int(rng.integers(0, 640 - w))
+            y0 = int(rng.integers(0, 480 - h))
+            img[y0:y0 + h, x0:x0 + w] = rng.integers(64, 256, 3)
+            rows.append(f"{int(rng.integers(0, 80))} {(x0 + w / 2) / 640:.6f}"
+                        f" {(y0 + h / 2) / 480:.6f} {w / 640:.6f} "
+                        f"{h / 480:.6f}")
+        imgs.append(img)
+        labels.append("\n".join(rows) + "\n")
+    return imgs, labels
+
+
+def run_training_phase(dev, smi, tmp):
+    """Phase 22 (D). train/runner.run_training on yolov2-416 from a .cfg
+    written by specs_to_cfg (random=1: multi-scale) and seeded .weights,
+    bf16 onepass, batch RUN_BATCH, RUN_SCENES synthetic 480x640 scenes
+    through read_fn and the native pixel kernel (YOLO_NATIVE_LOADER=1): 30
+    steps with a checkpoint every 10, then a second call that resumes to
+    step 40. img/s with the loader in the loop, and the card's idle share
+    1 - (device time of the steps / wall time), from CUDA events around
+    each step."""
+    import argparse
+    import contextlib
+    import io
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.io import cfg as CF
+    from yolo_tensorflow_tpu_torch.io import checkpoint as CK
+    from yolo_tensorflow_tpu_torch.io import weights as W
+    from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.train import loop as TL
+    from yolo_tensorflow_tpu_torch.train import runner
+    root = os.path.join(tmp, "run_training")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub))
+    cfg = C.get_config("yolov2")
+    specs = C.build_specs(cfg)
+    text = CF.specs_to_cfg(cfg, specs, batch=RUN_BATCH)
+    require("random=0" in text, "specs_to_cfg wrote no random= line")
+    with open(os.path.join(root, "yolov2.cfg"), "w") as f:
+        f.write(text.replace("random=0", "random=1"))
+    params, stats = engine.init_params(specs, cfg.input_size, SEED + 22)
+    W.save_darknet_weights(specs, cfg.input_size, params, stats,
+                           os.path.join(root, "yolov2.weights"))
+    del params, stats
+    imgs, labels = scenes(RUN_SCENES, SEED + 22)
+    pixels = {}
+    for i, (img, lab) in enumerate(zip(imgs, labels)):
+        path = os.path.join(root, "images", f"scene{i:03d}.jpg")
+        with open(os.path.join(root, "labels", f"scene{i:03d}.txt"),
+                  "w") as f:
+            f.write(lab)
+        pixels[path] = img
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.write("\n".join(pixels) + "\n")
+
+    steps, saves = [], []
+    real_step, real_save = TL.make_train_step, CK.save_train_state
+
+    def timed_step(*a, **k):
+        inner = real_step(*a, **k)
+
+        def step(state, images, truths):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = inner(state, images, truths)
+            end.record()
+            steps.append((t0, start, end, images.shape[1]))
+            return out
+        return step
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        out = real_save(*a, **k)
+        saves.append((t0, time.perf_counter()))
+        return out
+
+    def call(n_steps):
+        args = argparse.Namespace(
+            model=None, cfg=os.path.join(root, "yolov2.cfg"), names=None,
+            list=os.path.join(root, "train.txt"), val_list=None,
+            weights=os.path.join(root, "yolov2.weights"),
+            partial_weights=False, ckpt_dir=os.path.join(root, "ckpt"),
+            batch_size=None, steps=n_steps, lr=None, burn_in=None,
+            input_size=None, multiscale=False, bf16=True, bn_onepass=True,
+            num_data=1, num_spatial=1, cache_images=False, save_every=10,
+            log_every=10, device=str(dev))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            state = runner.run_training(args, read_fn=pixels.__getitem__)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            print(f"[22 run_training] {line}")
+        return state, out.getvalue(), wall
+
+    os.environ["YOLO_NATIVE_LOADER"] = "1"
+    TL.make_train_step, CK.save_train_state = timed_step, timed_save
+    try:
+        state, log1, wall1 = call(30)
+        require(int(state.step) == 30, f"first call ended at step "
+                f"{int(state.step)}")
+        del state
+        torch.cuda.empty_cache()
+        # steps 11..29, each timed from its start to the next one's: the
+        # host interval holds the loader's wait, the step, and at step 20
+        # the checkpoint save. A step that is the first at its size also
+        # holds cuDNN's autotuning of that shape (cudnn.benchmark).
+        torch.cuda.synchronize()
+        seen_sizes, rows = set(), []
+        for i, (t0, s, e, size) in enumerate(steps[:30]):
+            first = size not in seen_sizes
+            seen_sizes.add(size)
+            if 10 <= i < 29:
+                wall = steps[i + 1][0] - t0
+                save = sum(b - a for a, b in saves
+                           if t0 <= a < steps[i + 1][0])
+                rows.append((wall, save, s.elapsed_time(e) / 1e3, first))
+        sizes = sorted(seen_sizes)
+        state, log2, wall2 = call(40)
+    finally:
+        TL.make_train_step, CK.save_train_state = real_step, real_save
+        os.environ.pop("YOLO_NATIVE_LOADER", None)
+    costs = [float(line.split("cost ")[1].split()[0])
+             for line in (log1 + log2).splitlines()
+             if line.startswith("step ")]
+    with open(os.path.join(root, "ckpt", "latest.json")) as f:
+        latest = json.load(f)
+    require("resumed from step 30" in log2 and latest["step"] == 40
+            and int(state.step) == 40 and len(costs) == 4
+            and np.all(np.isfinite(costs)) and len(sizes) > 1,
+            f"run_training: resumed? {'resumed from step 30' in log2}, "
+            f"latest.json {latest}, step {int(state.step)}, costs {costs}, "
+            f"sizes {sizes}")
+    span = sum(r[0] for r in rows)
+    save_s = sum(r[1] for r in rows)
+    busy = sum(r[2] for r in rows)
+    steady = [r for r in rows if not r[3] and not r[1]]
+    tuned = [r for r in rows if r[3]]
+    s_wall, s_busy = sum(r[0] for r in steady), sum(r[2] for r in steady)
+    rate = RUN_BATCH * len(rows) / span
+    print(f"[22 run_training] yolov2-416 from a cfg (random=1) and seeded "
+          f".weights, bf16 onepass B={RUN_BATCH}, {RUN_SCENES} scenes of "
+          f"480x640 via read_fn + the native kernel: 30 steps in "
+          f"{wall1:.1f} s (sizes {sizes}), then resumed from step 30 to 40 "
+          f"in {wall2:.1f} s; latest.json {latest}; cost {costs}")
+    print(f"[22 run_training] steps 11-29 with the loader in the loop: "
+          f"{rate:.1f} img/s ({span / len(rows) * 1e3:.1f} ms a step), "
+          f"device time of the steps {busy:.2f} s of {span:.2f} s wall, "
+          f"idle share {1 - busy / span:.3f}; of it the checkpoint save "
+          f"{save_s:.2f} s and {len(tuned)} steps first at their size "
+          f"(cuDNN autotuning, device "
+          f"{sum(r[2] for r in tuned) / max(len(tuned), 1) * 1e3:.0f} ms "
+          f"each); the other {len(steady)} steps: "
+          f"{RUN_BATCH * len(steady) / s_wall:.1f} img/s, "
+          f"{s_wall / len(steady) * 1e3:.1f} ms a step, device "
+          f"{s_busy / len(steady) * 1e3:.1f} ms, idle share "
+          f"{1 - s_busy / s_wall:.3f}; on {smi}")
+    return rate, 1 - busy / span
 
 
 def crafted_region_params(cfg, specs):
@@ -2306,12 +2720,15 @@ def main():
         params, stats = engine.init_params(specs, cfg.input_size, SEED,
                                            obj_bias=OBJ_BIAS)
         torch.backends.cudnn.benchmark = False
-        train_parity_phase(cfg, specs, params, stats, n_fused, dev)
+        imgs9, tr9 = train_inputs(cfg, TRAIN_PARITY_BATCH, SEED + 9)
+        train_parity("9 f32 train", cfg, specs, params, stats, n_fused, dev,
+                     imgs=imgs9, tr=tr9)
 
         # 10. the bf16 training path
         torch.backends.cudnn.benchmark = True
-        bnstat_launches = train_bf16_phase(cfg, specs, params, stats, dev,
-                                           n_fused, smi)
+        bnstat_launches = train_rate("10 bf16 train", cfg, specs, params,
+                                     stats, dev, n_fused, smi,
+                                     batch=TRAIN_BATCH, seed=SEED + 10)[0]
         del params, stats
 
         # 11-12. yolov2-416: the region head on its real path; 13. yolov1
@@ -2343,6 +2760,19 @@ def main():
             specs, cfg, path, int8_shapes(
                 specs, cfg, convs - Q.head_conv_layers(specs)),
             qparams, calib, imgs, dev, int8_rate, int8_net_ms, kind, smi)
+        del qparams, calib
+
+        # 19-22. training of the region, grid and classifier families:
+        # conv_bnstat at Darknet-19's shapes, f32 parity, bf16 throughput
+        # and run_training end to end
+        darknet19_bnstat_phase(dev)
+        torch.backends.cudnn.benchmark = False
+        families_train_parity_phase(dev)
+        torch.backends.cudnn.benchmark = True
+        family_rates = families_train_rate_phase(dev, smi)
+        bnstat_launches += (family_rates["yolov2"][0]
+                            + family_rates["darknet19-classifier"][0])
+        run_training_phase(dev, smi, tmp)
 
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",

@@ -49,3 +49,44 @@ def test_overrides_match():
     kw = dict(input_size=608, conf_threshold=0.25)
     assert (_fields(TC.get_config("yolov3", **kw))
             == _fields(JC.get_config("yolov3", **kw)))
+
+
+# ---------------------------------------------------------------- copies of
+# the framework-free modules the trainer needs: the source equal line for
+# line, the imports pointed into the port
+
+COPIES = ("io/cfg.py", "io/datacfg.py", "data/datasets.py",
+          "data/augment.py")
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_module_copies_equal_their_originals(rel):
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "yolo_tensorflow_tpu", rel)) as f:
+        want = f.read()
+    with open(os.path.join(root, "yolo_tensorflow_tpu_torch", rel)) as f:
+        got = f.read()
+    assert "from yolo_tensorflow_tpu." not in got
+    assert "from yolo_tensorflow_tpu import" not in got
+    assert got.replace("yolo_tensorflow_tpu_torch", "yolo_tensorflow_tpu") \
+        == want
+
+
+@pytest.mark.parametrize("name", JC.MODEL_NAMES)
+def test_config_from_cfg_matches(name, tmp_path):
+    """config_from_cfg on the cfg that specs_to_cfg writes for every zoo
+    model: the same ModelConfig and specs from both packages."""
+    from yolo_tensorflow_tpu.io import cfg as JCfg
+    from yolo_tensorflow_tpu_torch.io import cfg as TCfg
+    path = tmp_path / f"{name}.cfg"
+    text = TCfg.specs_to_cfg(TC.get_config(name))
+    assert text == JCfg.specs_to_cfg(JC.get_config(name))
+    path.write_text(text)
+    got_cfg, got = TC.config_from_cfg(str(path), name=name)
+    want_cfg, want = JC.config_from_cfg(str(path), name=name)
+    assert _fields(got_cfg) == _fields(want_cfg)
+    assert len(got) == len(want) > 0
+    for i, (p, j) in enumerate(zip(got, want)):
+        assert type(p) is getattr(TS, type(j).__name__), i
+        assert _fields(p) == _fields(j), i

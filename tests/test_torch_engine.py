@@ -151,7 +151,8 @@ def test_bf16_network_keeps_connected_layers_as_jax_does():
 
 def test_train_network_takes_reorg_and_leaves_connected_layers():
     """TrainNetwork runs the region family's layers (Reorg under a Route);
-    the v1 connected head in training is not ported."""
+    the v1 connected head trains too (tests/test_torch_train_families.py)
+    and leaves its Dropout to a generator, which it must be given."""
     _, specs = model("narrow-v2", 64)
     jcfg, jspecs = jax_model("narrow-v2", 64)
     raw, _ = TE.init_params(specs, 64, 0)
@@ -167,15 +168,19 @@ def test_train_network_takes_reorg_and_leaves_connected_layers():
                                np.asarray(want[0][0]), rtol=1e-4, atol=1e-4)
     assert stats.keys() == aux["batch_stats"].keys()
     _, v1 = model("narrow-v1", 64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TE.TrainNetwork(v1, TE.init_params(v1, 64, 0)[0])
+    net = TE.TrainNetwork(v1, TE.init_params(v1, 64, 0)[0])
+    x1 = torch.zeros((2, 3, 64, 64))
+    with pytest.raises(ValueError, match="Generator"):
+        net(x1)
+    (feat, _), = net(x1, generator=torch.Generator())[0]
+    assert feat.shape == (2, 126) and feat.dtype == torch.float32
 
 
 def test_unfolded_connected_bn_raises():
     specs = (S.TransposeFlatten(), S.Dense(4, bn=True))
     p = {"L001": {"w": np.zeros((12, 4)), "gamma": np.ones(4),
                   "beta": np.zeros(4)}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         TE.Network(specs, p)
     with pytest.raises(ValueError, match="reorg mode"):
         TE.Network((S.Reorg(2, "pixel_unshuffle"),), {})

@@ -22,7 +22,9 @@ def test_port_imports_no_jax_and_no_triton():
     assert "yolo_tensorflow_tpu_torch.pipeline" in modules
     assert "yolo_tensorflow_tpu_torch.ops.quant" in modules
     for name in ("train.loop", "train.losses", "ops.kernels.conv_bnstat",
-                 "ops.preprocess", "ops.kernels.nms"):
+                 "ops.preprocess", "ops.kernels.nms", "train.runner",
+                 "io.cfg", "io.datacfg", "io.checkpoint", "data.datasets",
+                 "data.augment", "data.native", "data.loader"):
         assert f"yolo_tensorflow_tpu_torch.{name}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

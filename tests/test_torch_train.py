@@ -211,9 +211,34 @@ def test_v3_loss_raises_for_the_scan_assignment():
 
 @pytest.mark.parametrize("name", ["yolov2", "yolov1", "darknet19-classifier"])
 def test_other_losses_raise(name):
+    """The v2, v1 and classifier losses are ported (tests/
+    test_torch_losses.py); what of their training still raises names its
+    reason: the YOLO9000 softmax tree (Queue 1 item 13), v1's ``random``
+    responsibility without a generator, the classifier's in-training
+    evaluation (Queue 1 item 11)."""
     cfg = TL.C.get_config(name)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TL.loss_for_config(cfg, (), [torch.zeros(1)], torch.zeros((1, 1, 5)))
+    if cfg.head == 2:
+        raw = torch.zeros((1, 13, 13, 5 * 85))
+        _, m = TL.loss_for_config(cfg, (), [raw], torch.zeros((1, 1, 5)))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            TL.losses.yolo_v2_region_loss(raw, torch.zeros((1, 1, 5)), cfg,
+                                          tree=object())
+    elif cfg.head == 1:
+        raw = torch.zeros((1, 1470))
+        _, m = TL.loss_for_config(cfg, (), [raw], torch.zeros((1, 1, 5)))
+        with pytest.raises(ValueError, match="Generator"):
+            TL.loss_for_config(
+                cfg, (), [raw], torch.zeros((1, 1, 5)), seen=0,
+                detection_hyper=TL.losses.DetectionHyper(random=True))
+    else:
+        import argparse
+        from yolo_tensorflow_tpu_torch.train import runner
+        probs = torch.full((1, 1000), 1e-3)
+        _, m = TL.loss_for_config(cfg, (), [probs], torch.zeros(1))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            runner.run_training(argparse.Namespace(
+                model=name, list="x", val_list="x", eval_every=1))
+    assert np.isfinite(float(m["cost"]))
 
 
 # ---------------------------------------------------------------- schedules
@@ -294,8 +319,9 @@ def test_sgd_update_matches_optax(build, rng):
 @pytest.mark.parametrize("call,match", [
     (lambda: TL.darknet_schedule(TL.NetTrainOptions(policy="random")),
      "random"),
-    (lambda: TL.optimizer_from_net(TL.NetTrainOptions(adam=True)),
-     "darknet_adam"),
+    (lambda: TL.losses.yolo_v2_region_loss(
+        torch.zeros((1, 2, 2, 10)), torch.zeros((1, 1, 5)),
+        model("narrow-v2", 64)[0], tree=object()), "item 13"),
     (lambda: TL.make_train_step(model("narrow", 64)[0], None,
                                 remat_every=2), "remat"),
     (lambda: TL.make_train_step(model("narrow", 64)[0], None,

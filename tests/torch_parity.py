@@ -2,8 +2,10 @@
 
 Parameters are drawn with numpy (``engine.init_params`` of the port) and
 handed to both packages: the port takes them in its OIHW layout, the JAX
-package in HWIO. Three small hand-built specs (v3-, v2- and v1-style) cover
-every layer type the port runs.
+package in HWIO. Small hand-built specs (v3-, v2-, v1-style and a
+darknet19-style classifier) cover every layer type the port runs;
+"narrow-v1-train" is the v1 net with dropout rate 0 and a connected layer
+with batch norm, for train-step parity.
 
 Each package gets configs and specs built from its own classes: the port
 dispatches with ``isinstance`` on its copies (``models/specs.py``), which a
@@ -82,10 +84,11 @@ def narrow_v2_spec(S=TS, reorg_mode="darknet"):
 V1_GRID, V1_BOXES = 3, 2
 
 
-def narrow_v1_spec(S=TS):
+def narrow_v1_spec(S=TS, rate=0.5, dense_bn=False):
     """yolov1-style net: bias-only and BN convs (one 7x7 stride 2), then
-    TransposeFlatten, three connected layers with a Dropout between them
-    and the flat grid head (3x3 cells, 2 boxes, 4 classes)."""
+    TransposeFlatten, three connected layers with a Dropout of ``rate``
+    between them and the flat grid head (3x3 cells, 2 boxes, 4 classes);
+    ``dense_bn``: the second connected layer with batch norm."""
     n_out = V1_GRID * V1_GRID * (len(NARROW_CLASSES) + 5 * V1_BOXES)
     return (
         S.Conv(8, 7, stride=2, bn=False),              # 0  32x32x8
@@ -95,10 +98,28 @@ def narrow_v1_spec(S=TS):
         S.Conv(8, 3, stride=2),                        # 4  4x4x8
         S.TransposeFlatten(),                          # 5  128
         S.Dense(32),                                   # 6
-        S.Dense(48),                                   # 7
-        S.Dropout(0.5),                                # 8
+        S.Dense(48, bn=dense_bn),                      # 7
+        S.Dropout(rate),                               # 8
         S.Dense(n_out, act="linear"),                  # 9
         S.Detect(()),                                  # 10
+    )
+
+
+def narrow_classifier_spec(S=TS):
+    """darknet19-style classifier: 3x3 BN convs (the fused conv + BN-stat
+    path), a 1x1 bottleneck, MaxPool, a bias-only 1x1 class conv,
+    GlobalAvgPool, Softmax and the classifier's Detect marker."""
+    return (
+        S.Conv(8, 3),                                  # 0  32x32x8
+        S.MaxPool(2, 2),                               # 1  16x16
+        S.Conv(16, 3),                                 # 2
+        S.Conv(8, 1),                                  # 3
+        S.Conv(16, 3),                                 # 4
+        S.MaxPool(2, 2),                               # 5  8x8x16
+        S.Conv(len(NARROW_CLASSES), 1, bn=False, act="linear"),
+        S.GlobalAvgPool(),                             # 7  (B, 4)
+        S.Softmax(),                                   # 8
+        S.Detect(()),                                  # 9
     )
 
 
@@ -122,13 +143,18 @@ def _model(C, S, name, input_size):
             name=name, dataset="custom", head=2, input_size=input_size,
             anchors=C.V2_TINY_VOC_ANCHORS, anchor_units="grid",
             custom_classes=NARROW_CLASSES), narrow_v2_spec(S, mode))
-    if name == "narrow-v1":
+    if name in ("narrow-v1", "narrow-v1-train"):
+        train = name == "narrow-v1-train"
         return (C.ModelConfig(
             name=name, dataset="custom", head=1, input_size=input_size,
             normalization="symmetric", grid=V1_GRID,
             boxes_per_cell=V1_BOXES, conf_threshold=0.2, iou_threshold=0.4,
             max_detections=10, custom_classes=NARROW_CLASSES),
-            narrow_v1_spec(S))
+            narrow_v1_spec(S, rate=0.0 if train else 0.5, dense_bn=train))
+    if name == "narrow-cls":
+        return (C.ModelConfig(
+            name=name, dataset="custom", head=0, input_size=input_size,
+            custom_classes=NARROW_CLASSES), narrow_classifier_spec(S))
     cfg = C.get_config(name, input_size=input_size)
     return cfg, C.build_specs(cfg)
 

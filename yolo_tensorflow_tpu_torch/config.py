@@ -2,8 +2,8 @@
 
 The port's own copy of yolo_tensorflow_tpu/config.py (the JAX package is
 never imported here), field for field and value for value;
-tests/test_torch_config.py holds the two equal for every model name.
-``config_from_cfg`` is not copied yet: it needs io/cfg.py (ROADMAP.md).
+tests/test_torch_config.py holds the two equal for every model name, and
+``config_from_cfg`` equal on a cfg of every model.
 
 One dataclass owns everything the reference scatters across tf.app.flags
 (YOLO_V3_convert...py:32-49), constants modules (YOLO_V2/.../config.py:7,
@@ -13,6 +13,7 @@ YOLOV3.py:8-12) and hard-coded literals in the pipeline classes.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -125,3 +126,74 @@ def build_specs(cfg: ModelConfig):
     if cfg.head == 2:
         return builder(cfg.num_classes, cfg.num_anchors)
     return builder(cfg.num_classes)
+
+
+def config_from_cfg(cfg_path: str, *, class_names_file: str = None,
+                    name: str = "custom"):
+    """Derive (ModelConfig, specs) from an arbitrary darknet .cfg — loads
+    any yolo/region/detection network the layer set supports, registry or
+    not (parse_network_cfg + the .data names file, examples/detector.c:8).
+    """
+    from yolo_tensorflow_tpu_torch.io.cfg import parse_cfg_file
+    specs, net, heads = parse_cfg_file(cfg_path)
+    if not heads:
+        # headless cfg -> classifier (darknet's classifier path: any net
+        # ending in [softmax]/[cost] with no detection head,
+        # examples/classifier.c). The engine reports the last layer's
+        # output through a Detect marker, like the registry classifier.
+        from yolo_tensorflow_tpu_torch.models import specs as S
+        if not isinstance(specs[-1], S.Detect):
+            specs = tuple(specs) + (S.Detect(()),)
+        input_size = int(net.get("height", 256))
+        if class_names_file:
+            with open(class_names_file) as f:
+                names = tuple(l.strip() for l in f if l.strip())
+        else:
+            ncls = next((sp.filters if not isinstance(sp, S.Dense)
+                         else sp.units for sp in reversed(specs)
+                         if isinstance(sp, (S.Conv, S.Local, S.Deconv,
+                                            S.Dense))), 2)
+            names = tuple(f"class_{i:03d}" for i in range(ncls))
+        cfg = ModelConfig(name=name, dataset="custom", head=0,
+                          input_size=input_size, custom_classes=names)
+        return cfg, specs
+    h0 = heads[0]
+    kind = h0["_type"]
+    input_size = int(net.get("height", 416))
+    ncls = int(h0.get("classes", 20))
+    if class_names_file:
+        with open(class_names_file) as f:
+            names = tuple(line.strip() for line in f if line.strip())
+        if len(names) != ncls:
+            raise ValueError(f"{len(names)} names vs classes={ncls} in cfg")
+    else:
+        names = tuple(f"class_{i:03d}" for i in range(ncls))
+
+    anchors: Tuple = ()
+    if "anchors" in h0:
+        vals = [float(v) for v in h0["anchors"].split(",")]
+        anchors = tuple((vals[i], vals[i + 1])
+                        for i in range(0, len(vals), 2))
+    if kind == "yolo":
+        cfg = ModelConfig(name=name, dataset="voc", head=3,
+                          input_size=input_size, anchors=anchors,
+                          anchor_units="pixel", class_softmax=False,
+                          custom_classes=names,
+                          conf_threshold=0.5, iou_threshold=0.5)
+    elif kind == "region":
+        tree_file = h0.get("tree", "")
+        if tree_file and not os.path.isabs(tree_file):
+            tree_file = os.path.join(os.path.dirname(
+                os.path.abspath(cfg_path)), tree_file)
+        cfg = ModelConfig(name=name, dataset="voc", head=2,
+                          input_size=input_size, anchors=anchors,
+                          anchor_units="grid", custom_classes=names,
+                          conf_threshold=0.5, iou_threshold=0.5,
+                          tree_file=tree_file)
+    else:  # detection (v1)
+        cfg = ModelConfig(name=name, dataset="voc", head=1,
+                          input_size=input_size, custom_classes=names,
+                          grid=int(h0.get("side", 7)),
+                          boxes_per_cell=int(h0.get("num", 2)),
+                          conf_threshold=0.2, iou_threshold=0.4)
+    return cfg, specs

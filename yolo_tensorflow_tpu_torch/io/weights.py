@@ -72,8 +72,9 @@ def fold_bn(w_oihw, gamma, beta, mean, var):
     return w.astype(np.float32), b.astype(np.float32)
 
 
-def _read_conv_sub(buf, ptr, cin, cout, k, bn):
-    """One conv layer (load_convolutional_weights order), folded."""
+def _read_conv_sub(buf, ptr, cin, cout, k, bn, fold):
+    """One conv layer (load_convolutional_weights order): (params, running
+    statistics or None, ptr), folded unless ``fold`` is false."""
     if bn:
         beta, ptr = _take(buf, ptr, cout)
         gamma, ptr = _take(buf, ptr, cout)
@@ -82,35 +83,53 @@ def _read_conv_sub(buf, ptr, cin, cout, k, bn):
     else:
         bias, ptr = _take(buf, ptr, cout)
     flat, ptr = _take(buf, ptr, cout * cin * k * k)
-    w = flat.reshape(cout, cin, k, k)
-    if bn:
+    w = np.array(flat.reshape(cout, cin, k, k), np.float32)
+    if not bn:
+        return {"w": w, "b": bias.copy()}, None, ptr
+    if fold:
         wf, bf = fold_bn(w, gamma, beta, mean, var)
-        return {"w": wf, "b": bf}, ptr
-    return {"w": np.array(w, np.float32), "b": bias.copy()}, ptr
+        return {"w": wf, "b": bf}, None, ptr
+    return ({"w": w, "gamma": gamma.copy(), "beta": beta.copy()},
+            {"mean": mean.copy(), "var": var.copy()}, ptr)
 
 
-def _read_fc(buf, ptr, fan_in, units, bn):
-    """One connected layer (load_connected_weights order), folded: w comes
-    back (In, Out)."""
+def _read_fc(buf, ptr, fan_in, units, bn, fold):
+    """One connected layer (load_connected_weights order): w comes back
+    (In, Out); the biases are the BN's beta. Folded unless ``fold`` is
+    false, as ``_read_conv_sub``."""
     bias, ptr = _take(buf, ptr, units)
     flat, ptr = _take(buf, ptr, units * fan_in)
     w = np.ascontiguousarray(flat.reshape(units, fan_in).T, np.float32)
     if not bn:
-        return {"w": w, "b": bias.copy()}, ptr
+        return {"w": w, "b": bias.copy()}, None, ptr
     gamma, ptr = _take(buf, ptr, units)
     mean, ptr = _take(buf, ptr, units)
     var, ptr = _take(buf, ptr, units)
-    inv = gamma / (np.sqrt(var) + 1e-6)      # biases are the BN's beta
+    if not fold:
+        return ({"w": w, "gamma": gamma.copy(), "beta": bias.copy()},
+                {"mean": mean.copy(), "var": var.copy()}, ptr)
+    inv = gamma / (np.sqrt(var) + 1e-6)
     return {"w": (w * inv[None, :]).astype(np.float32),
-            "b": (bias - mean * inv).astype(np.float32)}, ptr
+            "b": (bias - mean * inv).astype(np.float32)}, None, ptr
 
 
 def load_darknet_weights(specs, input_size: int, path_or_bytes, *,
-                         in_channels: int = 3):
-    """Parse a .weights stream against ``specs`` -> (params, header), params
-    folded: {layer_key(i): {"w": OIHW f32, "b": f32}} per conv and {"w":
-    (In, Out) f32, "b": f32} per connected layer. Specs the port cannot run
-    raise NotImplementedError."""
+                         in_channels: int = 3, fold: bool = True,
+                         allow_partial: bool = False):
+    """Parse a .weights stream against ``specs``.
+
+    fold=True (serving) returns (params, header), BN folded with darknet's
+    formula: {layer_key(i): {"w": OIHW f32, "b": f32}} per conv and {"w":
+    (In, Out) f32, "b": f32} per connected layer. fold=False (training)
+    returns (params, batch_stats, header) as the TPU package's loader does:
+    BN convs and connected layers carry {"w", "gamma", "beta"} and their
+    running {"mean", "var"} land in batch_stats.
+
+    ``allow_partial``: accept a file that ends at a layer boundary before
+    the spec list does (a backbone cut by darknet's ``partial``, such as
+    darknet19_448.conv.23); layers past its end are absent from the
+    result. A file that ends inside a layer still raises. Specs the port
+    cannot run raise NotImplementedError."""
     if isinstance(path_or_bytes, (bytes, bytearray)):
         fp = _io.BytesIO(path_or_bytes)
     else:
@@ -121,21 +140,31 @@ def load_darknet_weights(specs, input_size: int, path_or_bytes, *,
 
     shapes = infer_shapes(specs, (1, input_size, input_size, in_channels))
     params: Dict[str, Dict[str, np.ndarray]] = {}
+    stats: Dict[str, Dict[str, np.ndarray]] = {}
     ptr = 0
+    stopped_early = False
     prev = (1, input_size, input_size, in_channels)
     for i, spec in enumerate(specs):
+        weighted = isinstance(spec, (S.Conv, S.Dense))
+        if allow_partial and ptr == buf.size and weighted:
+            stopped_early = True
+            break
         if isinstance(spec, S.Conv):
-            params[layer_key(i)], ptr = _read_conv_sub(
-                buf, ptr, prev[3], spec.filters, spec.size, spec.bn)
+            sub, st, ptr = _read_conv_sub(buf, ptr, prev[3], spec.filters,
+                                          spec.size, spec.bn, fold)
         elif isinstance(spec, S.Dense):
-            params[layer_key(i)], ptr = _read_fc(buf, ptr, prev[1],
-                                                 spec.units, spec.bn)
+            sub, st, ptr = _read_fc(buf, ptr, prev[1], spec.units, spec.bn,
+                                    fold)
+        if weighted:
+            params[layer_key(i)] = sub
+            if st is not None:
+                stats[layer_key(i)] = st
         prev = shapes[i]
-    if ptr != buf.size:
+    if ptr != buf.size and not stopped_early:
         raise WeightsFormatError(
             f"weights file has {buf.size - ptr} unconsumed floats "
             f"(consumed {ptr}); spec/weights mismatch")
-    return params, header
+    return (params, header) if fold else (params, stats, header)
 
 
 def save_darknet_weights(specs, input_size: int, params, batch_stats, path,
@@ -173,12 +202,11 @@ def save_darknet_weights(specs, input_size: int, params, batch_stats, path,
             fp.write(np.ascontiguousarray(p["w"]).tobytes())
 
 
-def params_from_jax(np_params):
-    """TPU-package parameters (numpy) -> the port's layout. Conv kernels go
-    from HWIO to OIHW, float ``w`` and int8 ``w_q`` alike. A connected
-    layer's 2-D ``w`` stays (In, Out): that is the port's layout too
-    (``ops.layers.dense``), not ``nn.Linear``'s (Out, In). Other arrays
-    (``b``, ``s_w``, ``s_x``) pass through."""
+HWIO_TO_OIHW = (3, 2, 0, 1)
+OIHW_TO_HWIO = (2, 3, 1, 0)
+
+
+def _relayout(np_params, axes):
     out = {}
     for key, p in np_params.items():
         p = {k: np.asarray(v) for k, v in p.items()}
@@ -190,13 +218,28 @@ def params_from_jax(np_params):
             raise NotImplementedError(
                 f"{key}: only conv and connected parameters carry over "
                 "(ROADMAP.md, 'the long tail')")
-        out[key] = {**p, name: np.ascontiguousarray(
-            p[name].transpose(3, 2, 0, 1))}
+        out[key] = {**p, name: np.ascontiguousarray(p[name].transpose(axes))}
     return out
 
 
+def params_from_jax(np_params):
+    """TPU-package parameters (numpy) -> the port's layout. Conv kernels go
+    from HWIO to OIHW, float ``w`` and int8 ``w_q`` alike. A connected
+    layer's 2-D ``w`` stays (In, Out): that is the port's layout too
+    (``ops.layers.dense``), not ``nn.Linear``'s (Out, In). Other arrays
+    (``b``, ``s_w``, ``s_x``, ``gamma``, ``beta``) pass through."""
+    return _relayout(np_params, HWIO_TO_OIHW)
+
+
+def params_to_jax(np_params):
+    """The inverse of ``params_from_jax``: the port's layout (numpy) -> the
+    TPU package's, conv kernels OIHW -> HWIO."""
+    return _relayout(np_params, OIHW_TO_HWIO)
+
+
 def train_state_from_jax(np_params, np_batch_stats, np_momentum=None):
-    """A TPU-package TrainState's parameters, running BN statistics and SGD
+    """A TPU-package TrainState's parameters (convs, and connected layers
+    plain or with their BN's gamma and beta), running BN statistics and SGD
     momentum buffers (numpy trees: the momentum is optax's trace, shaped
     like the parameters) -> the port's layout, conv kernels OIHW, as
     ``train.loop.create_train_state(params=, batch_stats=, momentum=)``

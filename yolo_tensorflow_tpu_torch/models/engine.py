@@ -6,11 +6,11 @@ Counterpart of yolo_tensorflow_tpu/models/engine.py (``apply``,
 detectors and the darknet19 classifier use: Conv (BN-folded or bias-only,
 any activation in ``ops.layers.activate``; or int8 w8a8, linear or leaky),
 MaxPool, Route, Shortcut, Reorg (both modes), Upsample(mode="nearest"),
-TransposeFlatten, Dense (folded, with its activation), Dropout (identity
-in inference), GlobalAvgPool, Softmax and Detect. Every other spec type,
-unfolded BN in inference, and Dense and Dropout in training raise
-NotImplementedError naming the ROADMAP item that will port them; nothing is
-skipped silently.
+TransposeFlatten, Dense (folded, with its activation; in training plain or
+with batch norm), Dropout (identity in inference, a generator's mask in
+training), GlobalAvgPool, Softmax and Detect. Every other spec type, and
+unfolded BN in inference, raise NotImplementedError naming the ROADMAP item
+that will port them; nothing is skipped silently.
 
 Parameters are the TPU package's folded pytree in the port's layout:
 {layer_key(i): {"w": (Cout, Cin, kh, kw), "b": (Cout,)}} per conv and
@@ -44,9 +44,7 @@ def layer_key(i: int) -> str:
 def check_supported(spec, i: int, train: bool = False) -> None:
     """Raise NotImplementedError for a spec the port cannot run yet
     (``train``: in ``TrainNetwork``)."""
-    if isinstance(spec, (S.Dense, S.Dropout)) and train:
-        item = "Queue 1 item 9: the v1 connected head in training"
-    elif isinstance(spec, (S.Conv, S.Dense) + _UNWEIGHTED):
+    if isinstance(spec, (S.Conv, S.Dense) + _UNWEIGHTED):
         if not isinstance(spec, S.Reorg) or spec.mode in ("darknet",
                                                           "space_to_depth"):
             return
@@ -228,8 +226,9 @@ class Network(nn.Module):
                 if "gamma" in p:
                     raise NotImplementedError(
                         f"{layer_key(i)}: unfolded connected + batch norm "
-                        "is not ported (ROADMAP.md, Queue 1 item 9): fold "
-                        "it, as io.weights.load_darknet_weights does")
+                        "in inference is not ported (ROADMAP.md, Queue 1 "
+                        "item 13: batch_norm_inference): fold it, as "
+                        "io.weights.load_darknet_weights does")
                 self.dense[layer_key(i)] = DenseLayer(
                     p, spec, device=device, dtype=flat_dtype)
                 flat_dtype = torch.float32
@@ -244,7 +243,8 @@ class Network(nn.Module):
                 raise NotImplementedError(
                     f"{layer_key(i)}: unfolded batch norm is the training "
                     "form (engine.TrainNetwork); inference with it is not "
-                    "ported (ROADMAP.md, 'training'): fold it, as "
+                    "ported (ROADMAP.md, Queue 1 item 13: "
+                    "batch_norm_inference): fold it, as "
                     "io.weights.load_darknet_weights does")
             w = torch.as_tensor(np.asarray(p["w"], np.float32))
             conv = nn.utils.skip_init(
@@ -298,23 +298,27 @@ class TrainNetwork(nn.Module):
 
     Holds unfolded parameters as float32 ``nn.Parameter``s in the port's
     layout, ``params[layer_key(i)]`` = {"w" OIHW, "gamma", "beta"} for a BN
-    conv and {"w", "b"} for a bias-only one (``params_tree()`` returns them
-    as that dict). Conv weights live in channels-last memory.
+    conv and {"w", "b"} for a bias-only one, and {"w" (In, Out), "gamma",
+    "beta"} or {"w", "b"} for a connected layer (``params_tree()`` returns
+    them as that dict). Conv weights live in channels-last memory.
 
-    ``forward(x, compute_dtype=None, bn_stats="twopass", bn_eps=1e-5)``
-    takes the normalized input (B, 3, H, W), channels-last, and returns
-    (detections, batch_stats): [(feat_nhwc float32, Detect)] per Detect
-    marker and {layer_key: {"mean", "var"}} float32 batch statistics, as
-    the TPU package returns them. BN convs use the batch statistics
-    (``ops.layers.batch_norm_train``); the 3x3 stride-1 ones run
-    ``ops.kernels.conv_bnstat`` (the CUDA kernel on a CUDA input), whose
-    sums give the batch mean and, under onepass, the variance. The other
-    convs are cuDNN's. ``compute_dtype`` bfloat16 is the TPU package's mixed
-    precision: BN-conv activations stay bf16 and are not re-cast between
-    layers, head convs come out in float32, and the master weights, batch
-    statistics and bias adds stay float32. ``compute_dtype`` float64 (on the
-    CPU) evaluates the same step in double: a reference for the float32
-    one."""
+    ``forward(x, compute_dtype=None, bn_stats="twopass", bn_eps=1e-5,
+    generator=None)`` takes the normalized input (B, 3, H, W),
+    channels-last, and returns (detections, batch_stats): [(feat_nhwc or
+    (B, features) float32, Detect)] per Detect marker and {layer_key:
+    {"mean", "var"}} float32 batch statistics, as the TPU package returns
+    them. BN convs use the batch statistics (``ops.layers.batch_norm_train``);
+    the 3x3 stride-1 ones run ``ops.kernels.conv_bnstat`` (the CUDA kernel
+    on a CUDA input), whose sums give the batch mean and, under onepass, the
+    variance. The other convs are cuDNN's. Connected layers train in float32
+    whatever ``compute_dtype`` (``ops.layers.connected_forward``; the TPU
+    package casts their input to float32 in training too). Dropout draws its
+    mask from ``generator`` (``ops.layers.dropout``). ``compute_dtype``
+    bfloat16 is the TPU package's mixed precision: BN-conv activations stay
+    bf16 and are not re-cast between layers, head convs come out in float32,
+    and the master weights, batch statistics and bias adds stay float32.
+    ``compute_dtype`` float64 (on the CPU) evaluates the same step in
+    double: a reference for the float32 one."""
 
     def __init__(self, specs, params, *, device="cpu"):
         super().__init__()
@@ -322,7 +326,7 @@ class TrainNetwork(nn.Module):
         self.params = nn.ModuleDict()
         for i, spec in enumerate(self.specs):
             check_supported(spec, i, train=True)
-            if not isinstance(spec, S.Conv):
+            if not isinstance(spec, (S.Conv, S.Dense)):
                 continue
             key = layer_key(i)
             p = params[key]
@@ -333,8 +337,9 @@ class TrainNetwork(nn.Module):
             # copies: the parameters are updated in place
             tensors = {n: torch.tensor(np.asarray(p[n], np.float32),
                                        device=device) for n in names}
-            tensors["w"] = tensors["w"].contiguous(
-                memory_format=torch.channels_last)
+            if isinstance(spec, S.Conv):
+                tensors["w"] = tensors["w"].contiguous(
+                    memory_format=torch.channels_last)
             self.params[key] = nn.ParameterDict(
                 {n: nn.Parameter(t) for n, t in tensors.items()})
 
@@ -358,12 +363,12 @@ class TrainNetwork(nn.Module):
                                   stats=bn_stats, sums=sums)
 
     def forward(self, x, compute_dtype=None, bn_stats: str = "twopass",
-                bn_eps: float = 1e-5):
+                bn_eps: float = 1e-5, generator=None):
         outputs, detections, stats = [], [], {}
         cur = x
         for i, spec in enumerate(self.specs):
+            key = layer_key(i)
             if isinstance(spec, S.Conv):
-                key = layer_key(i)
                 p = self.params[key]
                 if spec.bn:
                     cur, mean, var = self._bn_conv(cur, spec, p,
@@ -376,6 +381,18 @@ class TrainNetwork(nn.Module):
                                    pad=None if spec.pad < 0 else spec.pad,
                                    compute_dtype=compute_dtype, train=True)
                 cur = L.activate(cur, spec.act)
+            elif isinstance(spec, S.Dense):
+                cur = cur.to(torch.promote_types(cur.dtype, torch.float32))
+                cur, st = L.connected_forward(
+                    cur, dict(self.params[key].items()), spec.act,
+                    bn_eps=bn_eps, bn_stats=bn_stats)
+                if st is not None:
+                    stats[key] = {n: v.detach() for n, v in st.items()}
+            elif isinstance(spec, S.Dropout):
+                if generator is None:
+                    raise ValueError(f"layer {i}: Dropout in training needs "
+                                     "a torch.Generator (generator=)")
+                cur = L.dropout(cur, spec.rate, generator)
             else:
                 cur = apply_unweighted(spec, i, cur, x, outputs)
             if isinstance(spec, S.Detect):
@@ -392,7 +409,9 @@ def init_params(specs, input_size: int, seed: int, *, in_channels: int = 3,
     jax.random). Returns (params, batch_stats) with unfolded BN, i.e. what
     a .weights file holds: BN convs {"w", "gamma", "beta"} with running
     {"mean", "var"}, bias-only convs {"w", "b"}, connected layers {"w" (In,
-    Out), "b"}, He-scaled (the last one before a Detect by 1/sqrt(fan_in)).
+    Out), "b"} (with batch norm {"w", "gamma", "beta"} and running
+    statistics), He-scaled (the last one before a Detect by
+    1/sqrt(fan_in)).
 
     Drawn so that random weights at full Darknet-53 depth give head logits
     of order 1 (no saturated scores, so no exact ties in top-k): He-scaled
@@ -440,16 +459,23 @@ def init_params(specs, input_size: int, seed: int, *, in_channels: int = 3,
                 params[key] = {"w": w * np.float32(np.sqrt(gain / fan_in)),
                                "b": b}
         elif isinstance(spec, S.Dense):
-            if spec.bn:
-                raise NotImplementedError(
-                    f"{key}: connected + batch norm parameters are not "
-                    "drawn (ROADMAP.md, Queue 1 item 9)")
             fan_in = prev[1]
             last = i + 1 < len(specs) and isinstance(specs[i + 1], S.Detect)
             w = rng.standard_normal((fan_in, spec.units), dtype=np.float32)
-            params[key] = {
-                "w": w * np.float32(np.sqrt((1.0 if last else 2.0) / fan_in)),
-                "b": (0.1 * rng.standard_normal(spec.units))
-                .astype(np.float32)}
+            w = w * np.float32(np.sqrt((1.0 if last else 2.0) / fan_in))
+            b = (0.1 * rng.standard_normal(spec.units)).astype(np.float32)
+            if spec.bn:
+                # the biases are the BN's beta (load_connected_weights)
+                params[key] = {
+                    "w": w, "beta": b,
+                    "gamma": rng.uniform(0.8, 1.2, spec.units)
+                    .astype(np.float32)}
+                stats[key] = {
+                    "mean": (0.1 * rng.standard_normal(spec.units))
+                    .astype(np.float32),
+                    "var": rng.uniform(0.8, 1.2, spec.units)
+                    .astype(np.float32)}
+            else:
+                params[key] = {"w": w, "b": b}
         prev = shapes[i]
     return params, stats

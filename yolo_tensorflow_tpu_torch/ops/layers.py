@@ -1,11 +1,12 @@
 """Primitive ops in PyTorch, for inference and training.
 
 Counterpart of yolo_tensorflow_tpu/ops/layers.py for the layers the v1, v2
-and v3 detectors run. Tensors here are NCHW in ``torch.channels_last``
-memory format (the NHWC bytes of the TPU package, so a permute to NHWC is
-free), conv weights are OIHW and connected weights (In, Out). Convolution
-goes to cuDNN through ``F.conv2d`` and ``dense`` to cuBLAS through
-``torch.matmul``: both were XLA's on the TPU, never a Pallas kernel.
+and v3 detectors and the darknet19 classifier run. Tensors here are NCHW
+in ``torch.channels_last`` memory format (the NHWC bytes of the TPU
+package, so a permute to NHWC is free), conv weights are OIHW and
+connected weights (In, Out). Convolution goes to cuDNN through
+``F.conv2d`` and ``dense`` to cuBLAS through ``torch.matmul``: both were
+XLA's on the TPU, never a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -221,3 +222,35 @@ def dense(x, w, b, act=None):
     wide = torch.promote_types(x.dtype, torch.float32)
     out = torch.matmul(x.to(wide), w.to(x.dtype).to(wide)) + b.to(wide)
     return out if act is None else act(out)
+
+
+def connected_forward(x, p, act, *, bn_eps, bn_stats: str = "twopass"):
+    """Train-mode forward_connected_layer (src/connected_layer.c): x (B, In)
+    @ w (In, Out), then batch norm over the batch with the layer's biases as
+    its beta (``p`` = {"w", "gamma", "beta"}) or a bias add (``p`` = {"w",
+    "b"}), then the activation. Returns (y, {"mean", "var"} or None).
+    ``bn_stats`` is batch_norm_train's twopass or onepass form. Inference
+    with unfolded connected BN is not ported: ``io.weights`` folds it."""
+    if "gamma" not in p:
+        return activate(dense(x, p["w"], p["b"]), act), None
+    check_bn_stats(bn_stats)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    y = torch.matmul(x.to(wide), p["w"].to(x.dtype).to(wide))
+    mean = y.mean(dim=0)
+    if bn_stats == "twopass":
+        var = torch.var(y, dim=0, correction=0)
+    else:
+        var = torch.clamp((y * y).mean(dim=0) - mean * mean, min=0.0)
+    inv = p["gamma"] * torch.rsqrt(var + bn_eps)
+    y = y * inv + (p["beta"] - mean * inv)
+    return activate(y, act), {"mean": mean, "var": var}
+
+
+def dropout(x, rate: float, generator: torch.Generator):
+    """Train-mode dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), else 0. The mask is drawn from ``generator``
+    (on x's device), where the TPU package draws it from a JAX PRNG key: the
+    same distribution, not the same draw."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)

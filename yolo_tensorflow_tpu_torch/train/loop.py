@@ -1,16 +1,19 @@
 """The training step, its optimizer and its schedules, in PyTorch.
 
 Counterpart of yolo_tensorflow_tpu/train/loop.py for one card: darknet's
-SGD + momentum + decay (src/network.c update_network) over the v3 loss.
-Where the TPU package is pure and jitted, the port runs eagerly and updates
-the parameters, momentum buffers and running statistics in place, which
-keeps one copy of each on the card. Nothing in a step syncs with the host:
-the learning rate, the step counter and the metrics stay tensors on the
-device until the caller reads them.
+SGD + momentum + decay and its Adam (src/network.c update_network) over
+the v3, v2 (region or ``tf``), v1 and classifier losses. Where the TPU
+package is pure and jitted, the port runs eagerly and updates the
+parameters, optimizer buffers and running statistics in place, which keeps
+one copy of each on the card. Nothing in a step syncs with the host: the
+learning rate, the step counter, ``seen`` and the metrics stay tensors on
+the device until the caller reads them. Random draws (dropout masks, v1's
+``random`` responsibility) come from the TrainState's torch.Generator, where
+the TPU package splits a JAX PRNG key: the same distributions, not the same
+draws.
 
-Not ported (ROADMAP.md, Queue 1 item 9): ``darknet_adam``, the ``random``
-lr policy (it draws from a JAX PRNG), rematerialization, QAT, the v2, v1
-and classifier losses, data parallelism and the runner.
+Not ported: the ``random`` lr policy and rematerialization (ROADMAP.md,
+Queue 1 item 9), QAT (item 13), data parallelism (item 10).
 """
 
 from __future__ import annotations
@@ -38,15 +41,25 @@ class SGDState(NamedTuple):
     momentum: dict
 
 
+class DarknetAdamState(NamedTuple):
+    """darknet_adam's state: the update count and the first and second
+    moments of every parameter ({layer_key: {name: tensor}})."""
+    count: torch.Tensor
+    m: dict
+    v: dict
+
+
 class TrainState(NamedTuple):
     """The TPU package's TrainState on one card. ``network`` holds the
     parameters (``engine.TrainNetwork``, updated in place); batch_stats are
     the running {layer_key: {"mean", "var"}}; step is an int64 0-d tensor
-    on the card. No rng: the v3 family has no dropout."""
+    on the card; ``generator`` the torch.Generator on the card that dropout
+    and v1's ``random`` responsibility draw from (the TPU package's rng)."""
     network: Any
     batch_stats: dict
-    opt_state: SGDState
+    opt_state: Any
     step: torch.Tensor
+    generator: torch.Generator
 
     @property
     def params(self) -> dict:
@@ -223,13 +236,77 @@ def make_optimizer(schedule, *, momentum: float = 0.9,
     return SGD(schedule, momentum=momentum, weight_decay=weight_decay)
 
 
-def optimizer_from_net(opts: NetTrainOptions, *, schedule=None) -> SGD:
-    """The optimizer update_network would run for this [net] section: SGD +
-    momentum + decay. adam=1 raises (``darknet_adam`` is not ported)."""
-    if opts.adam:
-        raise NotImplementedError(f"[net] adam=1: darknet_adam is not "
-                                  f"ported ({_ITEM})")
+class DarknetAdam:
+    """darknet's Adam (``[net] adam=1``), the TPU package's ``darknet_adam``
+    transcribed from the GPU kernels (adam_update_gpu / adam_kernel,
+    src/blas_kernels.cu), applied in place:
+
+        d  = -batch * (g + decay * w)       every tensor, biases and BN
+                                            scales too (unlike SGD)
+        m  = B1 * m + (1 - B1) * d ;  v = B2 * v + (1 - B2) * d^2
+        w  = w + rate * (m / (1 - B1^t)) / (sqrt(v / (1 - B2^t)) + eps)
+
+    with ``rate`` the schedule's learning rate at the count before the
+    update, undivided by batch, and t the update's number, from 1. The
+    gradients here are -d_darknet / batch (the losses' delta identity), so
+    d is rebuilt as -batch * (g + decay * w)."""
+
+    def __init__(self, schedule, *, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-7, decay: float = 0.0, batch: int = 1):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.decay, self.batch = decay, batch
+
+    def init(self, params) -> DarknetAdamState:
+        leaf = next(iter(next(iter(params.values())).values()))
+        zeros = lambda: {k: {n: torch.zeros_like(v) for n, v in p.items()}
+                         for k, p in params.items()}
+        return DarknetAdamState(
+            count=torch.zeros((), dtype=torch.int64, device=leaf.device),
+            m=zeros(), v=zeros())
+
+    @torch.no_grad()
+    def apply_(self, params, grads, state: DarknetAdamState):
+        """Update params and both moments in place; returns the state with
+        the count advanced."""
+        names = [(k, n) for k, p in params.items() for n in p]
+        ws = [params[k][n] for k, n in names]
+        ms = [state.m[k][n] for k, n in names]
+        vs = [state.v[k][n] for k, n in names]
+        d = torch._foreach_add([grads[k][n] for k, n in names], ws,
+                               alpha=self.decay)
+        torch._foreach_mul_(d, -float(self.batch))
+        torch._foreach_mul_(ms, self.b1)
+        torch._foreach_add_(ms, torch._foreach_mul(d, 1.0 - self.b1))
+        torch._foreach_mul_(vs, self.b2)
+        torch._foreach_add_(vs, torch._foreach_mul(
+            torch._foreach_mul(d, d), 1.0 - self.b2))
+        dtype = ws[0].dtype
+        rate = self.schedule(state.count).to(dtype)
+        t = (state.count + 1).to(dtype)
+        c1 = 1.0 - torch.pow(torch.full_like(t, self.b1), t)
+        c2 = 1.0 - torch.pow(torch.full_like(t, self.b2), t)
+        den = torch._foreach_sqrt(torch._foreach_div(vs, c2))
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(torch._foreach_mul(
+            torch._foreach_div(ms, c1), rate), den)
+        torch._foreach_add_(ws, upd)
+        return DarknetAdamState(state.count + 1, state.m, state.v)
+
+
+darknet_adam = DarknetAdam        # the TPU package's name for it
+
+
+def optimizer_from_net(opts: NetTrainOptions, *,
+                       batch: Optional[int] = None, schedule=None):
+    """The optimizer update_network would run for this [net] section:
+    darknet_adam when adam=1 (at ``batch``, by default the section's), else
+    SGD + momentum + decay."""
     schedule = darknet_schedule(opts) if schedule is None else schedule
+    if opts.adam:
+        return darknet_adam(schedule, b1=opts.B1, b2=opts.B2, eps=opts.eps,
+                            decay=opts.decay,
+                            batch=batch or max(opts.batch, 1))
     return make_optimizer(schedule, momentum=opts.momentum,
                           weight_decay=opts.decay)
 
@@ -239,7 +316,7 @@ def _tensors(tree, device):
                 for n, v in p.items()} for k, p in tree.items()}
 
 
-def create_train_state(cfg: C.ModelConfig, tx: SGD, *, seed: int = 0,
+def create_train_state(cfg: C.ModelConfig, tx, *, seed: int = 0,
                        input_size: Optional[int] = None, specs=None,
                        qat: bool = False, device="cuda", params=None,
                        batch_stats=None, momentum=None) -> TrainState:
@@ -248,9 +325,11 @@ def create_train_state(cfg: C.ModelConfig, tx: SGD, *, seed: int = 0,
     ``engine.init_params`` of ``seed`` (the TPU package draws its own with
     jax.random), unless ``params`` and ``batch_stats`` (port layout, as
     ``io.weights.train_state_from_jax`` gives them) are passed;
-    ``momentum`` likewise seeds the optimizer's buffers."""
+    ``momentum`` likewise seeds an SGD optimizer's buffers. The state's
+    generator is seeded with ``seed``."""
     if qat:
-        raise NotImplementedError(f"QAT training is not ported ({_ITEM})")
+        raise NotImplementedError("QAT training is not ported (ROADMAP.md, "
+                                  "Queue 1 item 13: ops/qat.py)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("create_train_state(device='cuda') needs a CUDA "
@@ -269,49 +348,79 @@ def create_train_state(cfg: C.ModelConfig, tx: SGD, *, seed: int = 0,
     return TrainState(network=network,
                       batch_stats=_tensors(batch_stats, device),
                       opt_state=opt_state,
-                      step=torch.zeros((), dtype=torch.int64, device=device))
+                      step=torch.zeros((), dtype=torch.int64, device=device),
+                      generator=torch.Generator(device=device).manual_seed(
+                          seed))
 
 
 def loss_for_config(cfg: C.ModelConfig, specs, raw_scales, truths, *,
                     ignore_thresh=0.5, truth_thresh=1.0, input_size=None,
-                    truth_assign: str = "vectorized"):
-    """The loss of the model family: the v3 loss for head 3. The v2 (both
-    variants), v1 and classifier losses raise."""
-    if cfg.head != 3:
-        name = {2: "v2", 1: "v1", 0: "classifier"}.get(cfg.head, cfg.head)
-        raise NotImplementedError(
-            f"the {name} training loss is not ported ({_ITEM}: the v2, v1 "
-            "and classifier losses)")
-    masks = [spec.anchor_mask for spec in specs if isinstance(spec, S.Detect)]
-    eff_cfg = cfg if input_size is None else _dc.replace(
-        cfg, input_size=input_size)
-    return losses.yolo_v3_loss(raw_scales, truths, eff_cfg,
-                               anchor_masks=masks,
-                               ignore_thresh=ignore_thresh,
-                               truth_thresh=truth_thresh,
-                               truth_assign=truth_assign)
+                    seen=None, v2_variant: str = "darknet",
+                    region_hyper: Optional[losses.RegionHyper] = None,
+                    detection_hyper: Optional[losses.DetectionHyper] = None,
+                    truth_assign: str = "vectorized", generator=None):
+    """The loss of the model family: v3 for head 3; for head 2 darknet's
+    region loss (rescore, the warm-up driven by ``seen``, the images
+    processed so far) or, with v2_variant "tf", the TF reference's Loss.py;
+    v1's detection loss for head 1 (``generator`` feeds its ``random``
+    responsibility); softmax cross-entropy for head 0, whose ``truths`` are
+    the (B,) labels."""
+    if cfg.head == 3:
+        masks = [spec.anchor_mask for spec in specs
+                 if isinstance(spec, S.Detect)]
+        eff_cfg = cfg if input_size is None else _dc.replace(
+            cfg, input_size=input_size)
+        return losses.yolo_v3_loss(raw_scales, truths, eff_cfg,
+                                   anchor_masks=masks,
+                                   ignore_thresh=ignore_thresh,
+                                   truth_thresh=truth_thresh,
+                                   truth_assign=truth_assign)
+    if cfg.head == 2:
+        (raw,) = raw_scales
+        grid = raw.shape[1]
+        if v2_variant == "tf":
+            targets = losses.build_v2_targets(truths, cfg, grid)
+            return losses.yolo_v2_loss(raw, targets, cfg, grid=grid)
+        return losses.yolo_v2_region_loss(
+            raw, truths, cfg, seen=seen,
+            hyper=region_hyper or losses.RegionHyper())
+    if cfg.head == 1:
+        (pred_flat,) = raw_scales
+        return losses.yolo_v1_loss(
+            pred_flat, truths, cfg,
+            hyper=detection_hyper or losses.DetectionHyper(), seen=seen,
+            generator=generator)
+    if cfg.head == 0:
+        (probs,) = raw_scales
+        return losses.classifier_loss(probs, truths.long())
+    raise ValueError(f"unknown head {cfg.head}")
 
 
 def loss_and_grads(cfg: C.ModelConfig, specs, network, images, truths, *,
                    input_size: Optional[int] = None,
                    ignore_thresh: float = 0.5, compute_dtype=None,
-                   bn_stats: str = "twopass", marks=None, **loss_kw):
+                   bn_stats: str = "twopass", marks=None, seen=None,
+                   generator=None, **loss_kw):
     """One forward and backward: (grads {layer_key: {name: tensor}},
     new batch statistics, metrics). ``images`` uint8 (B, S, S, 3) and
-    ``truths`` (B, T, 5) on the network's device. ``marks``, if given, is
-    called with "forward", "loss" and "backward" as each part is enqueued
-    (``chip_smoke.py`` records CUDA events there)."""
+    ``truths`` (B, T, 5), or (B,) labels for a classifier, on the network's
+    device. ``seen`` and ``generator`` (dropout, v1's ``random``) go to the
+    network and the loss. ``marks``, if given, is called with "forward",
+    "loss" and "backward" as each part is enqueued (``chip_smoke.py``
+    records CUDA events there)."""
     mark = marks or (lambda _: None)
     params = network.params_tree()
     leaves = [(k, n) for k, p in params.items() for n in p]
     with L.exact_f32_convs(not L.is_narrow(compute_dtype)
                            and images.is_cuda):
         x = normalize_images(images, cfg)
-        dets, new_stats = network(x, compute_dtype, bn_stats, cfg.bn_eps)
+        dets, new_stats = network(x, compute_dtype, bn_stats, cfg.bn_eps,
+                                  generator=generator)
         mark("forward")
         loss, metrics = loss_for_config(
             cfg, specs, [f for f, _ in dets], truths,
-            ignore_thresh=ignore_thresh, input_size=input_size, **loss_kw)
+            ignore_thresh=ignore_thresh, input_size=input_size, seen=seen,
+            generator=generator, **loss_kw)
         mark("loss")
         flat = torch.autograd.grad(loss, [params[k][n] for k, n in leaves])
         mark("backward")
@@ -321,18 +430,21 @@ def loss_and_grads(cfg: C.ModelConfig, specs, network, images, truths, *,
     return grads, new_stats, metrics
 
 
-def make_train_step(cfg: C.ModelConfig, tx: SGD, *,
+def make_train_step(cfg: C.ModelConfig, tx, *,
                     input_size: Optional[int] = None,
                     ignore_thresh: float = 0.5, compute_dtype=None,
                     specs=None, remat_every: Optional[int] = None,
                     bn_stats: str = "twopass", marks=None, **loss_kw):
     """Build (state, images_u8, truths) -> (state, metrics).
 
-    The step runs ``loss_and_grads``, the optimizer and the running-stat
-    update m * run + (1 - m) * new (m = cfg.bn_momentum). ``compute_dtype``
-    None or float32 trains in full float32 (TF32 off); bfloat16 is the TPU
-    package's mixed precision. ``marks`` also hears "optimizer".
-    ``remat_every`` raises: rematerialization is not ported."""
+    The step runs ``loss_and_grads`` with darknet's ``seen`` = step * batch
+    (a tensor on the device), the optimizer (``SGD`` or ``DarknetAdam``) and
+    the running-stat update m * run + (1 - m) * new (m = cfg.bn_momentum).
+    ``compute_dtype`` None or float32 trains in full float32 (TF32 off);
+    bfloat16 is the TPU package's mixed precision. ``loss_kw`` (v2_variant,
+    region_hyper, detection_hyper, truth_thresh) go to ``loss_for_config``.
+    ``marks`` also hears "optimizer". ``remat_every`` raises:
+    rematerialization is not ported."""
     if remat_every:
         raise NotImplementedError(f"remat_every: rematerialization is not "
                                   f"ported ({_ITEM})")
@@ -348,6 +460,7 @@ def make_train_step(cfg: C.ModelConfig, tx: SGD, *,
             cfg, specs, state.network, images, truths,
             input_size=input_size, ignore_thresh=ignore_thresh,
             compute_dtype=compute_dtype, bn_stats=bn_stats, marks=marks,
+            seen=state.step * images.shape[0], generator=state.generator,
             **loss_kw)
         opt_state = tx.apply_(state.params, grads, state.opt_state)
         m = cfg.bn_momentum
@@ -358,14 +471,14 @@ def make_train_step(cfg: C.ModelConfig, tx: SGD, *,
                 for k, run in state.batch_stats.items()
             } if new_stats else state.batch_stats
         mark("optimizer")
-        return (TrainState(state.network, batch_stats, opt_state,
-                           state.step + 1),
+        return (state._replace(batch_stats=batch_stats, opt_state=opt_state,
+                               step=state.step + 1),
                 dict(metrics, step=state.step))
 
     return train_step
 
 
-def make_multi_step(cfg: C.ModelConfig, tx: SGD, n_steps: int, **kw):
+def make_multi_step(cfg: C.ModelConfig, tx, n_steps: int, **kw):
     """(state, images (N, B, ...), truths (N, B, T, 5)) -> (state, metrics
     stacked over the N steps): ``n_steps`` train steps in a loop, the
     counterpart of the TPU package's scan inside one jit."""
