@@ -113,12 +113,13 @@ failure is caught):
              7's mixed int8; per shape at batch 64 the entry's ms beside the
              mixed kernel's, its plain ms and its bound.
  19. bnstat darknet19 (A): the fused conv + BN-statistics kernel against
-             its plain version, f32 and bf16 at TRAIN_BATCH, at every
-             distinct 3x3 stride-1 BN conv of yolov2 at 416 (the 1280 ->
-             1024 conv after the reorg + route among them), 320 and 608
-             (multi-scale's ends, grids 10 and 19) and of darknet19-256;
-             yolov2-416's bf16 shapes timed (kernel, bound, plain, cuDNN's
-             conv + two sums, summed over a training forward);
+             its plain version, f32 and bf16, at every distinct 3x3
+             stride-1 BN conv of yolov2 at each of run_training's
+             multi-scale sizes 320..608 (grids 10..19; the 1280 -> 1024
+             conv after the reorg + route among them) at TRAIN_BATCH and
+             of darknet19-256 at CLS_BATCH; the bf16 shapes of yolov2-416
+             and darknet19-256 timed (kernel, bound, plain, cuDNN's conv +
+             two sums, summed over a training forward);
  20. f32 train families (B): one f32 onepass step at batch 2 on the card
              against the CPU port, as phase 9: yolov2-416 with darknet's
              region loss at seen 0 (the warm-up on) and 12800, then one
@@ -135,11 +136,15 @@ failure is caught):
              .weights, bf16 onepass, batch 32, 64 synthetic 480x640 scenes
              through read_fn and the native pixel kernel
              (YOLO_NATIVE_LOADER=1): 30 steps, a checkpoint every 10, then a
-             second call resumes to step 40; img/s with the loader in the
-             loop and the card's idle share.
-Then a JSON line describing each kernel (conv3x3_bnstat's launches: one
-step each of phase 10 and of phase 21's yolov2 and darknet19), and last the
-JSON result line.
+             second call resumes to step 40, cudnn.benchmark off as a
+             user runs it; conv_bnstat launched 15 times a step in each
+             call; img/s with the loader in the loop and the inter-step
+             idle share (CUDA events), and the card's idle share from a
+             torch.profiler trace of eight steps.
+Then a JSON line describing each kernel (conv3x3_bnstat: launches, ms,
+bound, plain and library ms all over one step each of yolov3 (phases 8 and
+10), yolov2-416 and darknet19-256 (phases 19 and 21)), and last the JSON
+result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
 weights in the repository), at full width and depth: Darknet-53 + FPN
@@ -247,7 +252,9 @@ TRUTHS = (30, 8)         # truth slots per image, valid ones (bench_train)
 CLS_BATCH = 64           # phase 21: darknet19-256's training batch
 RUN_BATCH = 32           # phase 22: run_training's batch ([net] batch=)
 RUN_SCENES = 64          # phase 22: synthetic 480x640 scenes
-MULTISCALE_ENDS = (320, 608)   # phase 19: the ends of multi-scale's sizes
+# phase 22: the steps traced by torch.profiler, as indices of the run's
+# steps (the resumed call's 32nd to 39th: one size, no save, no log)
+RUN_TRACED = (31, 39)
 # conv_bnstat, kernel vs plain, relative to the largest |y| or per channel.
 # y: f32 sums in another order (measured <= 3e-6); bf16 rounds two
 # accumulators that differ by order, so at most 1 ulp (2**-7 of |y|) apart.
@@ -983,8 +990,9 @@ def bnstat_check(label, got, want, dtype, n):
 
 
 def bnstat_kernel_phase(specs, cfg, dev):
-    """Phase 8. Returns the kernel's JSON fields measured here, summed over
-    the main path's convs (bf16, batch TRAIN_BATCH)."""
+    """Phase 8. Returns (max |y err|, Counter of the kernel's ms, plain,
+    library and bound ms summed over a yolov3-416 training forward's convs,
+    bf16, batch TRAIN_BATCH)."""
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     shapes = bnstat_shapes(specs, cfg)
@@ -1042,8 +1050,6 @@ def bnstat_kernel_phase(specs, cfg, dev):
                 tot[f"bound_{by}"] += n * bnd
                 tot["flops"] += n * flops
             del x, w
-    by = ("bytes" if tot["bound_bytes"] >= tot["bound_operations"]
-          else "operations")
     print(f"[8 bnstat kernel] per {MODEL}-416 training forward at "
           f"B={TRAIN_BATCH} bf16, summed over the {sum(shapes.values())} "
           f"fused convs ({tot['flops'] / 1e12:.3f} TFLOP): kernel "
@@ -1052,6 +1058,16 @@ def bnstat_kernel_phase(specs, cfg, dev):
           f"{tot['bound_bytes']:.3f}, operations-bound "
           f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms, "
           f"cuDNN conv + 2 sums {tot['lib']:.3f} ms")
+    return max_err, tot
+
+
+def bnstat_fields(max_err, tots):
+    """conv3x3_bnstat's JSON fields: ms, bounds, plain and library times
+    summed over the launches of one bf16 step of each model in ``tots``
+    (Counters of phases 8 and 19), the worst |y err| of phases 8 and 19."""
+    tot = sum(tots, collections.Counter())
+    by = ("bytes" if tot["bound_bytes"] >= tot["bound_operations"]
+          else "operations")
     return {"max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain"],
             "bound_ms": tot["bound"], "bound_by": by,
             "library_ms": tot["lib"]}
@@ -1262,40 +1278,46 @@ def train_rate(label, cfg, specs, params, stats, dev, n_fused, smi, *,
 
 def darknet19_bnstat_phase(dev):
     """Phase 19 (A). conv_bnstat against its plain version at Darknet-19's
-    shapes: every distinct 3x3 stride-1 BN conv of yolov2 at 416 (the
-    1280 -> 1024 conv after the route among them) and at multi-scale's ends
-    320 and 608 (grids 10 and 19), and of darknet19-256, at TRAIN_BATCH,
-    f32 and bf16. yolov2-416's bf16 shapes are timed: kernel, bound, plain
-    and cuDNN's conv + two sums, summed over a training forward's
-    launches."""
+    shapes, f32 and bf16: every distinct 3x3 stride-1 BN conv of yolov2 at
+    each of run_training's multi-scale sizes (320..608, grids 10..19; the
+    1280 -> 1024 conv after the route among them) at TRAIN_BATCH, and of
+    darknet19-256 at CLS_BATCH. The bf16 shapes of yolov2-416 and
+    darknet19-256 are timed: kernel, bound, plain and cuDNN's conv + two
+    sums, summed over a training forward's launches. Returns (max |y err|,
+    {model: Counter of those sums})."""
     import dataclasses
     from yolo_tensorflow_tpu_torch import config as C
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
+    from yolo_tensorflow_tpu_torch.train import runner
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     v2, cls = C.get_config("yolov2"), C.get_config("darknet19-classifier")
     v2_specs, cls_specs = C.build_specs(v2), C.build_specs(cls)
-    groups = [("yolov2-416", bnstat_shapes(v2_specs, v2))] + [
-        (f"yolov2-{s}", bnstat_shapes(v2_specs, dataclasses.replace(
-            v2, input_size=s))) for s in MULTISCALE_ENDS] + [
-        ("darknet19-256", bnstat_shapes(cls_specs, cls))]
-    require(any(cin == 1280 for _, cin, _ in groups[0][1]),
-            "yolov2-416 has no 1280 -> 1024 conv after the route")
-    max_err, cases, tot = 0.0, 0, collections.Counter()
+    require(v2.input_size in runner.MULTISCALE_SIZES,
+            f"{v2.input_size} is not a multi-scale size")
+    groups = [("yolov2", s, TRAIN_BATCH, bnstat_shapes(
+        v2_specs, dataclasses.replace(v2, input_size=s)))
+        for s in runner.MULTISCALE_SIZES] + [
+        ("darknet19-classifier", cls.input_size, CLS_BATCH,
+         bnstat_shapes(cls_specs, cls))]
+    require(any(cin == 1280 for (_, cin, _) in groups[0][3]),
+            "yolov2 has no 1280 -> 1024 conv after the route")
+    max_err, cases, tots = 0.0, 0, collections.defaultdict(
+        collections.Counter)
     used = collections.Counter()
-    for name, shapes in groups:
-        timed = name == "yolov2-416"
+    for model, size, batch, shapes in groups:
+        timed = size == C.get_config(model).input_size
+        name = f"{model}-{size}"
         for (h, cin, cout), n in sorted(shapes.items(),
                                         key=lambda kv: -kv[0][0]):
             for dtype in (torch.float32, torch.bfloat16):
                 x, w, nbytes, flops, library = bnstat_case(
-                    gen, dev, TRAIN_BATCH, h, cin, cout, dtype)
+                    gen, dev, batch, h, cin, cout, dtype)
                 instance, bn = BS.plan(x, w)
-                label = (f"{name} B={TRAIN_BATCH} {h}^2 {cin}->{cout} "
+                label = (f"{name} B={batch} {h}^2 {cin}->{cout} "
                          f"{str(dtype)[6:]} {instance} BN={bn}")
                 err, s_err, q_err = bnstat_check(
                     label, BS.conv3x3_bnstat_forward(x, w),
-                    BS.conv3x3_bnstat_plain(x, w), dtype,
-                    TRAIN_BATCH * h * h)
+                    BS.conv3x3_bnstat_plain(x, w), dtype, batch * h * h)
                 max_err, cases = max(max_err, err), cases + 1
                 used[(instance, bn)] += 1
                 if timed and dtype == torch.bfloat16:
@@ -1314,21 +1336,28 @@ def darknet19_bnstat_phase(dev):
                     for key, v in (("ms", ms), ("plain", plain),
                                    ("lib", lib), ("bound", bnd),
                                    (f"bound_{by}", bnd), ("flops", flops)):
-                        tot[key] += n * v
+                        tots[model][key] += n * v
                 del x, w
-    print(f"[19 bnstat darknet19] {cases} cases (yolov2 at 320, 416 and "
-          f"608, darknet19-256; f32 and bf16) equal to plain within "
-          f"BNSTAT_TOL, max |y err| {max_err:.3g}; (instance, BN) taken: "
-          f"{dict(used)}")
-    n = sum(groups[0][1].values())
-    print(f"[19 bnstat darknet19] per yolov2-416 training forward at "
-          f"B={TRAIN_BATCH} bf16, summed over the {n} fused convs "
-          f"({tot['flops'] / 1e12:.3f} TFLOP): kernel {tot['ms']:.3f} ms "
-          f"({tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s), bound "
-          f"{tot['bound']:.3f} ms (bytes-bound convs "
-          f"{tot['bound_bytes']:.3f}, operations-bound "
-          f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms, "
-          f"cuDNN conv + 2 sums {tot['lib']:.3f} ms")
+    grids = [s // 32 for s in runner.MULTISCALE_SIZES]
+    print(f"[19 bnstat darknet19] {cases} cases (yolov2 at "
+          f"{list(runner.MULTISCALE_SIZES)}, head grids {grids}, B="
+          f"{TRAIN_BATCH}; darknet19-256 B={CLS_BATCH}; f32 and bf16) equal "
+          f"to plain within BNSTAT_TOL, max |y err| {max_err:.3g}; "
+          f"(instance, BN) taken: {dict(used)}")
+    for model, tot in tots.items():
+        cfg = C.get_config(model)
+        batch = CLS_BATCH if cfg.head == 0 else TRAIN_BATCH
+        n = sum(next(g[3] for g in groups if g[0] == model
+                     and g[1] == cfg.input_size).values())
+        print(f"[19 bnstat darknet19] per {model}-{cfg.input_size} training "
+              f"forward at B={batch} bf16, summed over the {n} fused convs "
+              f"({tot['flops'] / 1e12:.3f} TFLOP): kernel {tot['ms']:.3f} ms "
+              f"({tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s), bound "
+              f"{tot['bound']:.3f} ms (bytes-bound convs "
+              f"{tot['bound_bytes']:.3f}, operations-bound "
+              f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms, "
+              f"cuDNN conv + 2 sums {tot['lib']:.3f} ms")
+    return max_err, dict(tots)
 
 
 def family_model(name, seed, dropout=None):
@@ -1463,9 +1492,13 @@ def run_training_phase(dev, smi, tmp):
     bf16 onepass, batch RUN_BATCH, RUN_SCENES synthetic 480x640 scenes
     through read_fn and the native pixel kernel (YOLO_NATIVE_LOADER=1): 30
     steps with a checkpoint every 10, then a second call that resumes to
-    step 40. img/s with the loader in the loop, and the card's idle share
-    1 - (device time of the steps / wall time), from CUDA events around
-    each step."""
+    step 40, each call launching conv_bnstat for every fused conv of every
+    step. img/s with the loader in the loop over steps 11-29, with their
+    inter-step idle share 1 - (sum of each step's span between CUDA events
+    recorded before and after it / wall time): a gap inside a step counts
+    as busy, so this is a lower bound. The card's idle share proper,
+    1 - (union of the kernel, memcpy and memset intervals of a
+    torch.profiler trace / wall time), over the RUN_TRACED steps."""
     import argparse
     import contextlib
     import io
@@ -1474,6 +1507,7 @@ def run_training_phase(dev, smi, tmp):
     from yolo_tensorflow_tpu_torch.io import checkpoint as CK
     from yolo_tensorflow_tpu_torch.io import weights as W
     from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
     from yolo_tensorflow_tpu_torch.train import loop as TL
     from yolo_tensorflow_tpu_torch.train import runner
     root = os.path.join(tmp, "run_training")
@@ -1481,6 +1515,7 @@ def run_training_phase(dev, smi, tmp):
         os.makedirs(os.path.join(root, sub))
     cfg = C.get_config("yolov2")
     specs = C.build_specs(cfg)
+    n_fused = sum(bnstat_shapes(specs, cfg).values())
     text = CF.specs_to_cfg(cfg, specs, batch=RUN_BATCH)
     require("random=0" in text, "specs_to_cfg wrote no random= line")
     with open(os.path.join(root, "yolov2.cfg"), "w") as f:
@@ -1500,13 +1535,22 @@ def run_training_phase(dev, smi, tmp):
     with open(os.path.join(root, "train.txt"), "w") as f:
         f.write("\n".join(pixels) + "\n")
 
-    steps, saves = [], []
+    steps, saves, traced = [], [], []
     real_step, real_save = TL.make_train_step, CK.save_train_state
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
 
     def timed_step(*a, **k):
         inner = real_step(*a, **k)
 
         def step(state, images, truths):
+            if len(steps) in RUN_TRACED:     # the window leaves out the
+                torch.cuda.synchronize()     # profiler's start and stop
+                if not traced:
+                    prof.start()
+                traced.append(time.perf_counter())
+                if len(traced) == 2:
+                    prof.stop()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
@@ -1534,6 +1578,8 @@ def run_training_phase(dev, smi, tmp):
             num_data=1, num_spatial=1, cache_images=False, save_every=10,
             log_every=10, device=str(dev))
         out = io.StringIO()
+        first = len(steps)
+        BS.launches = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             state = runner.run_training(args, read_fn=pixels.__getitem__)
@@ -1541,6 +1587,12 @@ def run_training_phase(dev, smi, tmp):
         wall = time.perf_counter() - t0
         for line in out.getvalue().splitlines():
             print(f"[22 run_training] {line}")
+        taken = len(steps) - first
+        require(BS.launches == n_fused * taken > 0,
+                f"run_training launched conv_bnstat {BS.launches} times in "
+                f"{taken} steps, expected {n_fused} a step")
+        print(f"[22 run_training] steps {first + 1}-{len(steps)}: "
+              f"{BS.launches} conv_bnstat launches ({n_fused} a step)")
         return state, out.getvalue(), wall
 
     os.environ["YOLO_NATIVE_LOADER"] = "1"
@@ -1553,8 +1605,7 @@ def run_training_phase(dev, smi, tmp):
         torch.cuda.empty_cache()
         # steps 11..29, each timed from its start to the next one's: the
         # host interval holds the loader's wait, the step, and at step 20
-        # the checkpoint save. A step that is the first at its size also
-        # holds cuDNN's autotuning of that shape (cudnn.benchmark).
+        # the checkpoint save.
         torch.cuda.synchronize()
         seen_sizes, rows = set(), []
         for i, (t0, s, e, size) in enumerate(steps[:30]):
@@ -1585,27 +1636,55 @@ def run_training_phase(dev, smi, tmp):
     save_s = sum(r[1] for r in rows)
     busy = sum(r[2] for r in rows)
     steady = [r for r in rows if not r[3] and not r[1]]
-    tuned = [r for r in rows if r[3]]
+    firsts = [r for r in rows if r[3]]
     s_wall, s_busy = sum(r[0] for r in steady), sum(r[2] for r in steady)
     rate = RUN_BATCH * len(rows) / span
+    # the traced steps: both syncs lie outside them, so every device
+    # interval of theirs is in the trace and within the wall window
+    trace = os.path.join(tmp, "run_training_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    device_us, end = 0.0, -float("inf")
+    for a, b in spans:
+        device_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    t_wall = traced[1] - traced[0]
+    t_steps = steps[RUN_TRACED[0]:RUN_TRACED[1]]
+    t_span = sum(s.elapsed_time(e) / 1e3 for _, s, e, _ in t_steps)
+    require(len(traced) == 2 and 0 < device_us / 1e6 < t_wall,
+            f"run_training's trace: {len(spans)} device intervals, "
+            f"{device_us / 1e6:.3f} s of {t_wall:.3f} s wall")
     print(f"[22 run_training] yolov2-416 from a cfg (random=1) and seeded "
           f".weights, bf16 onepass B={RUN_BATCH}, {RUN_SCENES} scenes of "
           f"480x640 via read_fn + the native kernel: 30 steps in "
           f"{wall1:.1f} s (sizes {sizes}), then resumed from step 30 to 40 "
           f"in {wall2:.1f} s; latest.json {latest}; cost {costs}")
-    print(f"[22 run_training] steps 11-29 with the loader in the loop: "
-          f"{rate:.1f} img/s ({span / len(rows) * 1e3:.1f} ms a step), "
-          f"device time of the steps {busy:.2f} s of {span:.2f} s wall, "
-          f"idle share {1 - busy / span:.3f}; of it the checkpoint save "
-          f"{save_s:.2f} s and {len(tuned)} steps first at their size "
-          f"(cuDNN autotuning, device "
-          f"{sum(r[2] for r in tuned) / max(len(tuned), 1) * 1e3:.0f} ms "
+    print(f"[22 run_training] steps 11-29 with the loader in the loop, "
+          f"cudnn.benchmark {torch.backends.cudnn.benchmark}: {rate:.1f} "
+          f"img/s ({span / len(rows) * 1e3:.1f} ms a step), the steps' "
+          f"spans between CUDA events {busy:.2f} s of {span:.2f} s wall, "
+          f"inter-step idle share {1 - busy / span:.3f}; of the wall the "
+          f"checkpoint save {save_s:.2f} s and {len(firsts)} steps first at "
+          f"their size (span "
+          f"{sum(r[2] for r in firsts) / max(len(firsts), 1) * 1e3:.0f} ms "
           f"each); the other {len(steady)} steps: "
           f"{RUN_BATCH * len(steady) / s_wall:.1f} img/s, "
-          f"{s_wall / len(steady) * 1e3:.1f} ms a step, device "
-          f"{s_busy / len(steady) * 1e3:.1f} ms, idle share "
+          f"{s_wall / len(steady) * 1e3:.1f} ms a step, span "
+          f"{s_busy / len(steady) * 1e3:.1f} ms, inter-step idle share "
           f"{1 - s_busy / s_wall:.3f}; on {smi}")
-    return rate, 1 - busy / span
+    print(f"[22 run_training] steps {RUN_TRACED[0] + 1}-{RUN_TRACED[1]} "
+          f"traced by torch.profiler (CUDA activity only) at "
+          f"{t_steps[0][3]}^2: {RUN_BATCH * len(t_steps) / t_wall:.1f} img/s "
+          f"({t_wall / len(t_steps) * 1e3:.1f} ms a step); device busy "
+          f"(union of {len(spans)} kernel, memcpy and memset intervals) "
+          f"{device_us / 1e3 / len(t_steps):.1f} ms a step, idle share "
+          f"{1 - device_us / 1e6 / t_wall:.3f}; spans between CUDA events "
+          f"{t_span / len(t_steps) * 1e3:.1f} ms a step, inter-step idle "
+          f"share {1 - t_span / t_wall:.3f}")
+    return rate, 1 - device_us / 1e6 / t_wall
 
 
 def crafted_region_params(cfg, specs):
@@ -2713,7 +2792,7 @@ def main():
         del x
 
         # 8. conv_bnstat kernel vs plain, at the shapes training runs
-        bnstat_fields = bnstat_kernel_phase(specs, cfg, dev)
+        v3_err, v3_bnstat = bnstat_kernel_phase(specs, cfg, dev)
 
         # 9. the f32 training path against the CPU port
         n_fused = sum(bnstat_shapes(specs, cfg).values())
@@ -2765,13 +2844,21 @@ def main():
         # 19-22. training of the region, grid and classifier families:
         # conv_bnstat at Darknet-19's shapes, f32 parity, bf16 throughput
         # and run_training end to end
-        darknet19_bnstat_phase(dev)
+        dn_err, dn_bnstat = darknet19_bnstat_phase(dev)
         torch.backends.cudnn.benchmark = False
         families_train_parity_phase(dev)
         torch.backends.cudnn.benchmark = True
         family_rates = families_train_rate_phase(dev, smi)
+        # one step each of yolov3 (phase 10), yolov2 and darknet19 (phase
+        # 21); phase 19 timed the same launches
         bnstat_launches += (family_rates["yolov2"][0]
                             + family_rates["darknet19-classifier"][0])
+        bnstat_entry = bnstat_fields(max(v3_err, dn_err), [
+            v3_bnstat, dn_bnstat["yolov2"],
+            dn_bnstat["darknet19-classifier"]])
+        # run_training leaves cudnn.benchmark as it finds it: a user's
+        # default is False
+        torch.backends.cudnn.benchmark = False
         run_training_phase(dev, smi, tmp)
 
     print(json.dumps({"kernels": [{
@@ -2790,7 +2877,7 @@ def main():
         "name": "conv3x3_bnstat", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/conv_bnstat.cu",
         "replaces": "tools/probe_conv_bnstat.py:47",
-        "launches": bnstat_launches, **bnstat_fields}, {
+        "launches": bnstat_launches, **bnstat_entry}, {
         "name": "greedy_nms", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/nms.cu",
         "replaces": "yolo_tensorflow_tpu/post/nms.py:103",
