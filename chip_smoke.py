@@ -141,6 +141,26 @@ failure is caught):
              call; img/s with the loader in the loop and the inter-step
              idle share (CUDA events), and the card's idle share from a
              torch.profiler trace of eight steps.
+ 23. int8 k7: the int8 conv kernel at yolov1's 7x7 stride-2 first conv
+             (Cin 3, Cout 64, 448^2) at batch 64 and the odd cases of
+             K7_ODD, both entries, f32 and bf16, against the plain twins
+             (0 ulp); its time beside its bound and plain time; int8
+             yolov1-448 (24 quantized convs, the connected head float) f32
+             against the CPU port with the int8 conv launched 24 times a
+             forward, and bf16 batch-64 img/s beside float yolov1's;
+ 24. eval:   evaluate_samples over synthetic scenes (.npy files through
+             read_fn): fused yolov2-416 (seeded, and phase 11's hand-made
+             head) and fused int8 yolov1 Detectors f32 against the CPU port
+             (detections and mAP equal, launches counted), then bf16 batch
+             64 img/s of the whole pipeline over 256 scenes with the card's
+             idle share from a torch.profiler trace;
+ 25. classifier: every Classifier mode (single, crop, 10crop, full, multi)
+             on darknet19-256 f32 against the CPU port (probabilities
+             within CLS_TOL, top 5 equal); bf16 classify_batch_center_crop
+             img/s at batch 64;
+ 26. run_training eval: darknet19-256 with val_list and eval_every
+             through read_fn: each round's top-1, conv_bnstat launched for
+             every fused conv of every step.
 Then a JSON line describing each kernel (conv3x3_bnstat: launches, ms,
 bound, plain and library ms all over one step each of yolov3 (phases 8 and
 10), yolov2-416 and darknet19-256 (phases 19 and 21)), and last the JSON
@@ -305,6 +325,26 @@ FUSED_TOL = dict(rtol=1e-4, atol=1.28e-2)
 # 0.958, about 0.94-0.95, distinct (anchor 4 half a step above anchor 0),
 # at the model's own threshold 0.5.
 CRAFTED = ((0, 0, 4.0, 7.5), (4, 1, 4.0 + 0.5 / 255, 7.5))
+# Phase 23, the int8 conv at yolov1's 7x7 stride-2 first conv (Cin 3, Cout
+# 64, 448^2), and odd cases (batch, stride, Cout, H = W, unaligned views):
+# Cout 8 and 72 (72 is past the direct kernel: the element-wise ring), M off
+# the 128-row tile, stride 1, 1x1 images, inputs and weights off a 16-byte
+# boundary. Kernel and plain twin compute the same exact accumulator and
+# round the epilogue alike: held equal, 0 ulp.
+K7_ODD = ((3, 2, 8, 9, False), (2, 1, 64, 5, False), (1, 2, 64, 1, False),
+          (2, 2, 72, 10, False), (2, 2, 64, 15, True), (2, 1, 32, 11, True))
+# Phase 24, evaluation: synthetic 480x640 scenes (phase 22's generator) as
+# .npy files read through read_fn; the first EVAL_PARITY of them are also
+# run by the CPU port (the int8 yolov1 one on 448^2 crops of them)
+EVAL_SCENES = 256
+EVAL_PARITY = 16
+EVAL_BATCH = 8           # batches of the card-vs-CPU runs (the tail too)
+# Phase 25, the classifier: probabilities card vs CPU (f32, TF32 off), and
+# the images of every mode (sizes (h, w)); phase 26 in-training evaluation
+CLS_TOL = dict(rtol=1e-4, atol=1e-6)
+CLS_SIZES = ((480, 640), (300, 200), (256, 256), (333, 500))
+RUN_CLS_IMAGES = 128     # phase 26: train and validation images
+RUN_CLS_STEPS = 4
 
 
 def require(cond, msg):
@@ -1641,22 +1681,14 @@ def run_training_phase(dev, smi, tmp):
     rate = RUN_BATCH * len(rows) / span
     # the traced steps: both syncs lie outside them, so every device
     # interval of theirs is in the trace and within the wall window
-    trace = os.path.join(tmp, "run_training_trace.json")
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    device_us, end = 0.0, -float("inf")
-    for a, b in spans:
-        device_us += max(0.0, b - max(a, end))
-        end = max(end, b)
+    dev_busy, n_spans = device_busy(prof, os.path.join(
+        tmp, "run_training_trace.json"))
     t_wall = traced[1] - traced[0]
     t_steps = steps[RUN_TRACED[0]:RUN_TRACED[1]]
     t_span = sum(s.elapsed_time(e) / 1e3 for _, s, e, _ in t_steps)
-    require(len(traced) == 2 and 0 < device_us / 1e6 < t_wall,
-            f"run_training's trace: {len(spans)} device intervals, "
-            f"{device_us / 1e6:.3f} s of {t_wall:.3f} s wall")
+    require(len(traced) == 2 and 0 < dev_busy < t_wall,
+            f"run_training's trace: {n_spans} device intervals, "
+            f"{dev_busy:.3f} s of {t_wall:.3f} s wall")
     print(f"[22 run_training] yolov2-416 from a cfg (random=1) and seeded "
           f".weights, bf16 onepass B={RUN_BATCH}, {RUN_SCENES} scenes of "
           f"480x640 via read_fn + the native kernel: 30 steps in "
@@ -1679,12 +1711,12 @@ def run_training_phase(dev, smi, tmp):
           f"traced by torch.profiler (CUDA activity only) at "
           f"{t_steps[0][3]}^2: {RUN_BATCH * len(t_steps) / t_wall:.1f} img/s "
           f"({t_wall / len(t_steps) * 1e3:.1f} ms a step); device busy "
-          f"(union of {len(spans)} kernel, memcpy and memset intervals) "
-          f"{device_us / 1e3 / len(t_steps):.1f} ms a step, idle share "
-          f"{1 - device_us / 1e6 / t_wall:.3f}; spans between CUDA events "
+          f"(union of {n_spans} kernel, memcpy and memset intervals) "
+          f"{dev_busy * 1e3 / len(t_steps):.1f} ms a step, idle share "
+          f"{1 - dev_busy / t_wall:.3f}; spans between CUDA events "
           f"{t_span / len(t_steps) * 1e3:.1f} ms a step, inter-step idle "
           f"share {1 - t_span / t_wall:.3f}")
-    return rate, 1 - device_us / 1e6 / t_wall
+    return rate, 1 - dev_busy / t_wall
 
 
 def crafted_region_params(cfg, specs):
@@ -2620,7 +2652,7 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
                 p = gpu_params[engine.layer_key(i)]
                 with L.exact_f32_convs():
                     head_ms += cuda_ms(lambda: Q._conv_int8(
-                        spec, i, p, *layers[i - 1], None, False), iters=5)
+                        spec, p, *layers[i - 1], None, False), iters=5)
         del layers
     print(f"[18 int8-act serve] make_int8_forward B={SERVE_BATCH} at "
           f"{size}: {statistics.median(rates):.1f} img/s median of 3 x 5 "
@@ -2674,6 +2706,505 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
     return n_q, {"max_abs_err": max_err, "ms": tot["ms"],
                         "plain_ms": tot["plain"], "bound_ms": tot["bound"],
                         "bound_by": by, "library_ms": None}
+
+
+def k7_case(gen, dev, batch, stride, cout, h, off, dtype):
+    """Operands of one 7x7 int8 conv on the card (Cin 3): phase 6's
+    int8_operands, the input and weights moved off a 16-byte boundary with
+    ``off``."""
+    x, w_q, s_x, s_w, b = int8_operands(gen, dev, batch, 7, 3, cout, h,
+                                        dtype)
+    if off:
+        x, w_q = unaligned(x), unaligned(w_q)
+    return x, w_q, s_x, s_w, b
+
+
+def k7_check(label, ops, stride, used):
+    """Both entries of the int8 kernel at one 7x7 conv against their plain
+    twins, leaky and linear: the f32/bf16-in entry's output, the int8-in
+    entry's int8 and float32 outputs, all equal (0 ulp)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    x, w_q, s_x, s_w, b = ops
+    dtype = x.dtype
+    for act in ("leaky", "linear"):
+        kw = dict(stride=stride, act=act)
+        got = Q8.conv2d_int8(x, w_q, s_x, s_w, b, epilogue_dtype=dtype,
+                             **kw)
+        want = Q8.conv2d_int8_plain(x, w_q, s_x, s_w, b,
+                                    epilogue_dtype=dtype, **kw)
+        xq = Q8.quantize_act(x, s_x)
+        outs = [(Q8.conv2d_int8_q(xq, s_x, w_q, s_w, b, s_out=s_out, **kw),
+                 Q8.conv2d_int8_q_plain(xq, s_x, w_q, s_w, b, s_out=s_out,
+                                        **kw))
+                for s_out in (0.9, None)]
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{label} {act} {Q8.plan(x, w_q)}: "
+                f"{ulp_distance(got, want)} ulps from plain")
+        for g, w in outs:
+            require(torch.equal(g, w), f"{label} {act} int8-in "
+                    f"{Q8.plan_q(xq, w_q, g.dtype == torch.int8)} "
+                    f"{g.dtype}: {int((g != w).sum())} differ from plain")
+        used[Q8.plan(x, w_q)] += 1
+
+
+def int8_k7_phase(dev, kind, smi, v1_path):
+    """Phase 23. The int8 kernel at yolov1's 7x7 stride-2 first conv, both
+    entries, against their plain twins and timed; int8 yolov1-448 (all 24
+    convs quantized, the connected head float) f32 against the CPU port,
+    and bf16 serving beside float yolov1's. Returns the int8 params and the
+    kernel's numbers at the first conv."""
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.io import weights as W
+    from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.ops import quant as Q
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    cfg = C.get_config("yolov1")
+    specs = C.build_specs(cfg)
+    size = cfg.input_size
+    first = specs[0]
+    require((first.size, first.stride, first.filters) == (7, 2, 64),
+            f"yolov1's first conv is {first}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    used = collections.Counter()
+    cases = [(SERVE_BATCH, 2, 64, size, False)] + list(K7_ODD)
+    for (batch, stride, cout, h, off) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            k7_check(f"23 int8 k7 B={batch} s{stride} 3->{cout} at {h}^2 "
+                     f"{dtype}{' unaligned' if off else ''}",
+                     k7_case(gen, dev, batch, stride, cout, h, off, dtype),
+                     stride, used)
+    print(f"[23 int8 k7] yolov1's first conv (7x7 s2, 3->64 at {size}^2) "
+          f"at B={SERVE_BATCH} and {len(K7_ODD)} odd cases, f32 and bf16, "
+          f"leaky and linear, both entries (int8 and float32 out for the "
+          f"int8-in one): equal to the plain twins, 0 ulp; (instance, BN) "
+          f"taken: {dict(used)}")
+
+    x, w_q, s_x, s_w, b = k7_case(gen, dev, SERVE_BATCH, 2, 64, size, False,
+                                  torch.bfloat16)
+    kw = dict(stride=2, act="leaky")
+    ms = cuda_ms(lambda: Q8.conv2d_int8(x, w_q, s_x, s_w, b,
+                                        epilogue_dtype=torch.bfloat16, **kw),
+                 iters=10)
+    quant = cuda_ms(lambda: Q8.quantize_act(x, s_x), iters=10)
+    plain = cuda_ms(lambda: Q8.conv2d_int8_plain(
+        x, w_q, s_x, s_w, b, epilogue_dtype=torch.bfloat16, **kw), iters=1,
+        warmup=1)
+    nbytes, ops = int8_cost(SERVE_BATCH, 7, 2, 3, 64, size, 2, 2)
+    bnd, by = bound_ms(nbytes, ops, INT8_OPS_S)
+    xq = Q8.quantize_act(x, s_x)
+    q_ms = cuda_ms(lambda: Q8.conv2d_int8_q(xq, s_x, w_q, s_w, b, s_out=0.9,
+                                            **kw), iters=10)
+    q_plain = cuda_ms(lambda: Q8.conv2d_int8_q_plain(
+        xq, s_x, w_q, s_w, b, s_out=0.9, **kw), iters=1, warmup=1)
+    q_bytes, _ = int8_cost(SERVE_BATCH, 7, 2, 3, 64, size, 1, 1)
+    q_bnd, q_by = bound_ms(q_bytes, ops, INT8_OPS_S)
+    wf = torch.randn((64, 3, 7, 7), generator=gen, device=dev,
+                     dtype=torch.bfloat16).contiguous(
+                         memory_format=torch.channels_last)
+    cudnn = cuda_ms(lambda: F.conv2d(x, wf, stride=2, padding=3), iters=10)
+    print(f"[23 int8 k7] B={SERVE_BATCH} bf16 7x7 s2 3->64 at {size}^2: "
+          f"{Q8.plan(x, w_q)}, kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+          f"TOPS) of which the quantize pass alone {quant:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.0f} MB, {ops / 1e9:.1f} G "
+          f"int8 ops), plain {plain:.3f} ms; the int8-in entry (int8 in and "
+          f"out) {q_ms:.4f} ms, bound {q_bnd:.4f} ms ({q_by}), plain "
+          f"{q_plain:.3f} ms; cuDNN bf16 conv {cudnn:.4f} ms (context: not "
+          f"the same function); on {smi}")
+    del x, w_q, xq, wf
+
+    folded, _ = W.load_darknet_weights(specs, size, v1_path)
+    rng = np.random.default_rng(SEED + 23)
+    calib = [rng.integers(0, 256, (PARITY_BATCH, size, size, 3),
+                          dtype=np.uint8) for _ in range(2)]
+    scales = Q.calibrate_activations(specs, folded, calib, cfg=cfg,
+                                     device=dev)
+    qparams = Q.quantize_params(specs, folded, scales)
+    n_int8 = sum("w_q" in p for p in qparams.values())
+    require(n_int8 == 24 and "w_q" in qparams[engine.layer_key(0)],
+            f"yolov1: {n_int8} convs quantized, expected all 24")
+    conf = REGION["yolov1"][1]
+    imgs = rng.integers(0, 256, (PARITY_BATCH, size, size, 3),
+                        dtype=np.uint8)
+    gpu = Detector("yolov1", params=qparams, device="cuda",
+                   conf_threshold=conf)
+    x2 = torch.as_tensor(imgs, device=dev)
+    gpu.detect_batch(x2)                   # warm-up, outside the count
+    got = NMS.fetch_detections(counted_forward(
+        "23 int8 yolov1 f32", lambda: gpu.detect_batch(x2), int8=n_int8,
+        decode=0, nms=1))
+    cpu = Detector("yolov1", params=qparams, device="cpu",
+                   conf_threshold=conf)
+    t0 = time.perf_counter()
+    want = NMS.fetch_detections(cpu.detect_batch(imgs))
+    cpu_s = time.perf_counter() - t0
+    check_detections("23 int8 yolov1 f32", gpu, imgs, got, want, cfg, kind,
+                     conf)
+    print(f"[23 int8 yolov1 f32] int8 yolov1-{size} (24 quantized convs, "
+          f"the 7x7 first one among them; the connected head float): "
+          f"Detections equal to the CPU port's (num {got.num.tolist()}); "
+          f"the CPU port took {cpu_s:.1f} s")
+    del gpu, cpu
+
+    torch.backends.cudnn.benchmark = True
+    x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, size, size, 3),
+                                     dtype=np.uint8), device=dev)
+    rates = {}
+    for label, params in (("int8", qparams), ("float", folded)):
+        det = Detector("yolov1", params=params, device="cuda",
+                       compute_dtype=torch.bfloat16, conf_threshold=conf)
+        step_ms, r, out = serve_rate(lambda: det.detect_batch(x), len(x))
+        out = NMS.fetch_detections(out)
+        require(np.isfinite(out.boxes).all(),
+                f"yolov1 {label} bf16 boxes not finite")
+        rates[label] = (statistics.median(r), min(r), max(r),
+                        statistics.median(step_ms))
+        if label == "int8":
+            counted_forward("23 int8 yolov1 bf16",
+                            lambda: det.detect_batch(x), int8=n_int8,
+                            decode=0, nms=1)
+        del det
+    print(f"[23 int8 yolov1 bf16] detect_batch B={SERVE_BATCH} at {size}: "
+          + "; ".join(f"{k} {v[0]:.1f} img/s (spread {v[1]:.1f}..{v[2]:.1f},"
+                      f" step {v[3]:.2f} ms)" for k, v in rates.items())
+          + f"; on {smi}")
+    return qparams, dict(ms=ms, bound_ms=bnd, plain_ms=plain)
+
+
+def device_busy(prof, path):
+    """(device busy s, intervals) of a stopped torch.profiler run: the union
+    of its kernel, memcpy and memset intervals, from the chrome trace
+    exported to ``path``."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, -float("inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy_us / 1e6, len(spans)
+
+
+def eval_samples_of(paths, results, sizes, rng):
+    """Samples whose ground truth is each image's first detections (pixel
+    boxes), jittered by up to 10 % of the box and relabelled now and then,
+    so that the mAP of a comparison is no trivial 0."""
+    from yolo_tensorflow_tpu_torch.data.datasets import Sample
+    samples = []
+    for path, res, (h, w) in zip(paths, results, sizes):
+        rows = []
+        for r in res[:5]:
+            x0, y0, x1, y1 = r["box"]
+            bw, bh = max(x1 - x0, 1.0), max(y1 - y0, 1.0)
+            cx = (x0 + x1) / 2 + rng.uniform(-0.1, 0.1) * bw
+            cy = (y0 + y1) / 2 + rng.uniform(-0.1, 0.1) * bh
+            cls = r["class_id"] if rng.random() < 0.8 else 0
+            rows.append([cx / w, cy / h, bw / w, bh / h, cls])
+        samples.append(Sample(path, np.asarray(rows, np.float32).reshape(
+            -1, 5)))
+    return samples
+
+
+def eval_parity(label, gpu, cpu, paths, read_fn, want_counts):
+    """evaluate_samples on the card against the CPU port over ``paths``
+    (ground truth from the card's own first pass): per image num and
+    classes equal, pixel boxes and scores within FUSED_TOL, the ground
+    truth and the mAP equal; the kernels' launches counted around the
+    card's run. Returns the mAP."""
+    from yolo_tensorflow_tpu_torch.eval import batched as EB
+    from yolo_tensorflow_tpu_torch.eval import map as EM
+    first, sizes = EB.detect_paths(gpu, paths, batch_size=EVAL_BATCH,
+                                   read_fn=read_fn)
+    samples = eval_samples_of(paths, first, sizes,
+                              np.random.default_rng(SEED + 24))
+    torch.cuda.synchronize()
+    reset_counts()
+    got = EB.evaluate_samples(gpu, samples, batch_size=EVAL_BATCH,
+                              read_fn=read_fn)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if k in want_counts}
+    require(launched == want_counts, f"{label}: evaluate_samples launched "
+            f"{launched}, expected {want_counts}")
+    t0 = time.perf_counter()
+    want = EB.evaluate_samples(cpu, samples, batch_size=EVAL_BATCH,
+                               read_fn=read_fn)
+    cpu_s = time.perf_counter() - t0
+    (dets, gts, results, _), (cdets, cgts, cresults, _) = got, want
+    err = 0.0
+    for i, (d, c) in enumerate(zip(dets, cdets)):
+        require(len(d["classes"]) == len(c["classes"])
+                and np.array_equal(d["classes"], c["classes"]),
+                f"{label}: image {i}: card classes {d['classes']} CPU "
+                f"{c['classes']}")
+        np.testing.assert_allclose(d["boxes"], c["boxes"], **FUSED_TOL)
+        np.testing.assert_allclose(d["scores"], c["scores"], **FUSED_TOL)
+        if len(d["boxes"]):
+            err = max(err, float(np.abs(d["boxes"] - c["boxes"]).max()))
+    for g, c in zip(gts, cgts):
+        require(np.array_equal(g["boxes"], c["boxes"])
+                and np.array_equal(g["classes"], c["classes"]),
+                f"{label}: ground truth differs")
+    m = EM.evaluate_detections(dets, gts, gpu.cfg.num_classes)
+    cm = EM.evaluate_detections(cdets, cgts, cpu.cfg.num_classes)
+    n = sum(len(r) for r in results)
+    require(m["map"] == cm["map"] and m["map"] > 0 and n > 0,
+            f"{label}: mAP card {m['map']} CPU {cm['map']}, {n} detections")
+    print(f"[{label}] evaluate_samples over {len(paths)} images in batches "
+          f"of {EVAL_BATCH} through read_fn: {n} detections, classes equal "
+          f"to the CPU port's, max |err| of pixel boxes {err:.3g} (tol "
+          f"{FUSED_TOL}); mAP@0.5 {m['map']:.6f} ({m['num_classes_evaluated']}"
+          f" classes) on the card and on the CPU; launches {launched}; the "
+          f"CPU port took {cpu_s:.1f} s")
+    return m["map"]
+
+
+def eval_rate(label, det, samples, read_fn, tmp, smi):
+    """bf16 evaluate_samples at batch SERVE_BATCH over every sample, after
+    a warm-up pass over them all (files read once, kernels built): img/s of
+    the whole pipeline (read_fn, canvases, the card, the fetch, the
+    un-mapping), then the same pass traced, for the card's idle share, 1 -
+    (union of the kernel, memcpy and memset intervals of a torch.profiler
+    trace / wall time)."""
+    from yolo_tensorflow_tpu_torch.eval import batched as EB
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = EB.evaluate_samples(det, samples, batch_size=SERVE_BATCH,
+                                  read_fn=read_fn)[0]
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run()
+    _, untraced = run()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    dets, wall = run()
+    prof.stop()
+    busy, n_spans = device_busy(prof, os.path.join(
+        tmp, label.replace(" ", "_") + ".json"))
+    require(len(dets) == len(samples) and 0 < busy < wall,
+            f"{label}: {len(dets)} results, device busy {busy:.3f} s of "
+            f"{wall:.3f} s")
+    print(f"[{label}] evaluate_samples bf16 B={SERVE_BATCH} over "
+          f"{len(samples)} scenes of 480x640 through read_fn: "
+          f"{len(samples) / untraced:.1f} img/s untraced, "
+          f"{len(samples) / wall:.1f} img/s traced; device busy (union of "
+          f"{n_spans} kernel, memcpy and memset intervals) {busy:.3f} s of "
+          f"{wall:.3f} s, idle share {1 - busy / wall:.3f}; "
+          f"{sum(len(d['scores']) for d in dets)} detections; on {smi}")
+    return len(samples) / untraced, 1 - busy / wall
+
+
+def eval_phase(dev, kind, smi, tmp, v2_path, v1_qparams):
+    """Phase 24. evaluate_samples on the card: a fused yolov2-416 Detector
+    (seeded, and the hand-made head of phase 11) and a fused int8 yolov1
+    one, f32 against the CPU port (detections and mAP), then bf16 batch
+    SERVE_BATCH img/s of the whole pipeline with the card's idle share."""
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.data.datasets import Sample
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    root = os.path.join(tmp, "eval")
+    os.makedirs(root)
+    imgs, labels = scenes(EVAL_SCENES, SEED + 24)
+    paths, samples = [], []
+    for i, (img, lab) in enumerate(zip(imgs, labels)):
+        path = os.path.join(root, f"scene{i:03d}.npy")
+        np.save(path, img)
+        rows = np.asarray([[float(v) for v in line.split()[1:]]
+                           + [int(line.split()[0]) % 20]
+                           for line in lab.splitlines()], np.float32)
+        paths.append(path)
+        samples.append(Sample(path, rows))
+    crops = []
+    for i in range(EVAL_PARITY // 2):
+        path = os.path.join(root, f"crop{i:03d}.npy")
+        np.save(path, imgs[i][:448, :448])
+        crops.append(path)
+    crafted = []
+    cfg2 = C.get_config("yolov2")
+    for i, img in enumerate(crafted_images(EVAL_BATCH, cfg2.input_size)):
+        path = os.path.join(root, f"crafted{i:03d}.npy")
+        np.save(path, img)
+        crafted.append(path)
+    del imgs
+    read_fn = np.load
+    torch.backends.cudnn.benchmark = False
+    batches = -(-EVAL_PARITY // EVAL_BATCH)
+    fused = dict(letterbox=True, fused=True)
+    conf2, conf1 = REGION["yolov2"][1], REGION["yolov1"][1]
+    maps = {}
+    for label, args, kw, imgs_of, want in (
+            ("24 eval yolov2 f32", (v2_path,), dict(conf_threshold=conf2),
+             paths[:EVAL_PARITY], dict(decode=batches, nms=batches)),
+            ("24 eval yolov2 hand-made f32",
+             (os.path.join(tmp, "yolov2-crafted.weights"),), {}, crafted,
+             dict(decode=1, nms=1)),
+            ("24 eval int8 yolov1 f32", (), dict(params=v1_qparams,
+                                                 conf_threshold=conf1),
+             crops, dict(decode=0, nms=1, int8=24))):
+        name = "yolov1" if "yolov1" in label else "yolov2"
+        gpu = Detector(name, *args, device="cuda", **fused, **kw)
+        cpu = Detector(name, *args, device="cpu", **fused, **kw)
+        maps[label] = eval_parity(label, gpu, cpu, imgs_of, read_fn, want)
+        del gpu, cpu
+    torch.backends.cudnn.benchmark = True
+    rates = {}
+    for label, name, args, kw in (
+            ("24 eval yolov2 bf16", "yolov2", (v2_path,),
+             dict(conf_threshold=conf2)),
+            ("24 eval int8 yolov1 bf16", "yolov1", (),
+             dict(params=v1_qparams, conf_threshold=conf1))):
+        det = Detector(name, *args, device="cuda",
+                       compute_dtype=torch.bfloat16, **fused, **kw)
+        rates[label] = eval_rate(label, det, samples, read_fn, tmp, smi)
+        del det
+    return maps, rates
+
+
+def classifier_phase(dev, kind, smi, tmp):
+    """Phase 25. Every Classifier mode on darknet19-256 in f32 against the
+    CPU port (probabilities within CLS_TOL, the top 5 equal), then bf16
+    classify_batch_center_crop at batch SERVE_BATCH."""
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.eval import classify as EV
+    from yolo_tensorflow_tpu_torch.io import weights as W
+    from yolo_tensorflow_tpu_torch.models import engine
+    from yolo_tensorflow_tpu_torch.pipeline import Classifier
+    name = "darknet19-classifier"
+    cfg = C.get_config(name)
+    specs = C.build_specs(cfg)
+    path = os.path.join(tmp, f"{name}-seed{SEED}.weights")
+    params, stats = engine.init_params(specs, cfg.input_size, SEED + 25)
+    W.save_darknet_weights(specs, cfg.input_size, params, stats, path)
+    del params, stats
+    rng = np.random.default_rng(SEED + 25)
+    imgs = [scenes(1, SEED + 25 + i)[0][0][:h, :w]
+            for i, (h, w) in enumerate(CLS_SIZES)]
+    torch.backends.cudnn.benchmark = False
+    gpu = Classifier(name, path, device="cuda")
+    cpu = Classifier(name, path, device="cpu")
+    rows = []
+    for mode, buckets in (("single", None), ("crop", None),
+                          ("10crop", None), ("full", None),
+                          ("full", "snap32"), ("multi", None),
+                          ("multi", "snap32")):
+        got = EV._chunk_probs(gpu, imgs, mode, buckets)
+        t0 = time.perf_counter()
+        want = EV._chunk_probs(cpu, imgs, mode, buckets)
+        cpu_s = time.perf_counter() - t0
+        np.testing.assert_allclose(got, want, **CLS_TOL)
+        top, ctop = EV.topk_indices(got, 5), EV.topk_indices(want, 5)
+        srt = -np.sort(-want, axis=1)
+        gap = float((srt[:, :5] - srt[:, 1:6]).min())
+        require(np.array_equal(top, ctop), f"25 classifier {mode}: top-5 "
+                f"card {top.tolist()} CPU {ctop.tolist()} (least gap of the "
+                f"CPU's top 6 {gap:.3g})")
+        rows.append(f"{mode}{'/' + buckets if buckets else ''} max |err| "
+                    f"{np.abs(got - want).max():.3g} (top-5 gap >= "
+                    f"{gap:.2g}; CPU {cpu_s:.1f} s)")
+    print(f"[25 classifier f32] {name}-{cfg.input_size} from a seeded "
+          f".weights file, images (h, w) {list(CLS_SIZES)}: every mode's "
+          f"probabilities within {CLS_TOL} of the CPU port's and the top 5 "
+          f"equal: {'; '.join(rows)}")
+    del gpu, cpu
+
+    torch.backends.cudnn.benchmark = True
+    clf = Classifier(name, path, device="cuda", compute_dtype=torch.bfloat16)
+    frames = [scenes(1, SEED + 250 + i)[0][0] for i in range(4)]
+    batch = [frames[i % 4] for i in range(SERVE_BATCH)]
+    step_ms, rates, probs = serve_rate(
+        lambda: clf.classify_batch_center_crop(batch), SERVE_BATCH)
+    probs = probs.float().cpu().numpy()
+    require(probs.shape == (SERVE_BATCH, cfg.num_classes)
+            and np.isfinite(probs).all()
+            and np.allclose(probs.sum(1), 1, atol=1e-2),
+            "bf16 center-crop probabilities not finite or not summing to 1")
+    x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, cfg.input_size,
+                                              cfg.input_size, 3),
+                                     dtype=np.uint8), device=dev)
+    net_ms, _, _ = serve_rate(lambda: clf.classify_batch(x), SERVE_BATCH)
+    print(f"[25 classifier bf16] classify_batch_center_crop B={SERVE_BATCH} "
+          f"of 480x640 host images (host crop into a 512 canvas, the resize "
+          f"on the card): {statistics.median(rates):.1f} img/s median of 3 x "
+          f"5 (spread {min(rates):.1f}..{max(rates):.1f}), step "
+          f"{statistics.median(step_ms):.2f} ms; classify_batch of images "
+          f"at {cfg.input_size} already on the card: "
+          f"{SERVE_BATCH * 1e3 / statistics.median(net_ms):.1f} img/s; on "
+          f"{smi}")
+    return statistics.median(rates)
+
+
+def run_training_eval_phase(dev, smi, tmp):
+    """Phase 26. run_training on darknet19-256 (bf16 onepass, batch
+    CLS_BATCH) with val_list and eval_every 2 through read_fn: the top-1 of
+    each evaluation round (the Classifier in mode 'crop', its resize on the
+    card) and conv_bnstat launched for every fused conv of every step,
+    none in the evaluations."""
+    import argparse
+    import contextlib
+    import io
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
+    from yolo_tensorflow_tpu_torch.train import runner
+    name = "darknet19-classifier"
+    cfg = C.get_config(name)
+    specs = C.build_specs(cfg)
+    n_fused = sum(bnstat_shapes(specs, cfg).values())
+    root = os.path.join(tmp, "run_training_eval")
+    os.makedirs(root)
+    rng = np.random.default_rng(SEED + 26)
+    pixels, lists = {}, {"train": [], "val": []}
+    for i in range(2 * RUN_CLS_IMAGES):
+        cls = i % 8
+        img = np.clip(rng.integers(0, 64, (96, 128, 3))
+                      + 24 * np.asarray([cls, 7 - cls, cls % 3]), 0,
+                      255).astype(np.uint8)
+        split = "train" if i < RUN_CLS_IMAGES else "val"
+        path = os.path.join(root, f"{cfg.classes[cls]}_{i:04d}.jpg")
+        pixels[path] = img
+        lists[split].append(path)
+    for split, paths in lists.items():
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(paths) + "\n")
+    args = argparse.Namespace(
+        model=name, cfg=None, names=None,
+        list=os.path.join(root, "train.txt"),
+        val_list=os.path.join(root, "val.txt"), eval_every=2, weights=None,
+        ckpt_dir=os.path.join(root, "ckpt"), batch_size=CLS_BATCH,
+        steps=RUN_CLS_STEPS, lr=1e-3, burn_in=10, input_size=None,
+        multiscale=False, bf16=True, bn_onepass=True, num_data=1,
+        num_spatial=1, cache_images=False, save_every=100, log_every=2,
+        device=str(dev))
+    out = io.StringIO()
+    BS.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = runner.run_training(args, read_fn=pixels.__getitem__)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = BS.launches
+    for line in out.getvalue().splitlines():
+        print(f"[26 run_training eval] {line}")
+    tops = [float(line.split("= ")[1]) for line in out.getvalue().splitlines()
+            if ": val top-1 = " in line]
+    require(int(state.step) == RUN_CLS_STEPS
+            and launches == n_fused * RUN_CLS_STEPS
+            and len(tops) == RUN_CLS_STEPS // 2
+            and all(0 <= t <= 1 for t in tops),
+            f"run_training with eval: step {int(state.step)}, conv_bnstat "
+            f"launches {launches} (expected {n_fused} a step), top-1 {tops}")
+    print(f"[26 run_training eval] {name}-{cfg.input_size} bf16 onepass "
+          f"B={CLS_BATCH}, {RUN_CLS_STEPS} steps with val_list "
+          f"({RUN_CLS_IMAGES} images) and eval_every 2 through read_fn in "
+          f"{wall:.1f} s: val top-1 {tops}; conv_bnstat launched {launches} "
+          f"times ({n_fused} a step, none in the evaluations); on {smi}")
+    return tops
 
 
 def main():
@@ -2860,6 +3391,16 @@ def main():
         # default is False
         torch.backends.cudnn.benchmark = False
         run_training_phase(dev, smi, tmp)
+
+        # 23. the int8 kernel at yolov1's 7x7 first conv; int8 yolov1
+        v1_qparams, _ = int8_k7_phase(dev, kind, smi, v1_path)
+
+        # 24-26. evaluation, the classifier, in-training evaluation
+        eval_phase(dev, kind, smi, tmp, v2_path, v1_qparams)
+        del v1_qparams
+        classifier_phase(dev, kind, smi, tmp)
+        torch.backends.cudnn.benchmark = False
+        run_training_eval_phase(dev, smi, tmp)
 
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",

@@ -52,11 +52,12 @@ def test_overrides_match():
 
 
 # ---------------------------------------------------------------- copies of
-# the framework-free modules the trainer needs: the source equal line for
-# line, the imports pointed into the port
+# the framework-free modules the trainer and evaluation need: the source
+# equal line for line, the imports pointed into the port
 
 COPIES = ("io/cfg.py", "io/datacfg.py", "data/datasets.py",
-          "data/augment.py")
+          "data/augment.py", "post/numpy_post.py", "eval/map.py",
+          "eval/__init__.py")
 
 
 @pytest.mark.parametrize("rel", COPIES)

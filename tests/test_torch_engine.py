@@ -187,15 +187,16 @@ def test_unfolded_connected_bn_raises():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"w_q": np.zeros((4, 3, 3, 3), np.int8), "s_w": np.ones(4, np.float32),
+    ({"w_q": np.zeros((4, 3, 5, 5), np.int8), "s_w": np.ones(4, np.float32),
       "s_x": np.float32(1)}, "int8"),
     ({"gamma": 0}, "training")])
 def test_unported_params_raise(extra, item):
-    """Unfolded BN raises, and so does an int8 conv whose activation (tanh)
-    the int8 kernel's epilogue does not fuse."""
-    p = {"L000": {"w": np.zeros((4, 3, 3, 3)), "b": np.zeros(4), **extra}}
+    """Unfolded BN raises, and so does an int8 conv of a size the int8
+    kernel does not take (5x5; its tanh, which the epilogue does not fuse,
+    would follow the kernel)."""
+    p = {"L000": {"w": np.zeros((4, 3, 5, 5)), "b": np.zeros(4), **extra}}
     with pytest.raises(NotImplementedError, match=item):
-        TE.Network((S.Conv(4, 3, act="tanh"),), p)
+        TE.Network((S.Conv(4, 5, act="tanh"),), p)
 
 
 INT8_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),

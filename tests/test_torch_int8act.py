@@ -25,7 +25,9 @@ ops/quant.py, on the same numpy parameters and inputs.
 The models: yolov3-tiny (routes that requantize, SAME max pool, upsample),
 a narrow v3 net with leaky convs only (shortcut, stride 2, a route of the
 input), the narrow v2 net (darknet reorg) and the narrow v1 net (its 7x7
-first conv kept float: the int8 kernel takes k in {1, 3}).
+stride-2 first conv quantized too). A logistic conv runs the int8-in entry
+with its float32 output, the activation after it and then the requantize,
+as JAX's apply_int8 orders them.
 """
 
 import functools
@@ -71,10 +73,8 @@ def quantized(request):
     calib = [images(2, SIZE, seed=3)]
     act = JQ.calibrate_activations(jspecs, jaxp, calib, cfg=jcfg)
     outs = JQ.calibrate_outputs(jspecs, jaxp, calib, cfg=jcfg)
-    skip = JQ.head_conv_layers(jspecs) | {
-        i for i, s in enumerate(specs)
-        if isinstance(s, TS.Conv) and s.size not in (1, 3)}
-    qparams = JQ.quantize_params(jspecs, jaxp, act, skip=skip)
+    qparams = JQ.quantize_params(jspecs, jaxp, act,
+                                 skip=JQ.head_conv_layers(jspecs))
     return name, cfg, specs, jcfg, jspecs, port, jaxp, outs, qparams
 
 
@@ -210,7 +210,8 @@ def _oihw(w_hwio):
 @pytest.mark.parametrize("out", ["int8", "float32"])
 @pytest.mark.parametrize("act", ["linear", "leaky"])
 @pytest.mark.parametrize("k,stride,cin", [(1, 1, 16), (3, 1, 16), (3, 2, 16),
-                                          (1, 2, 8), (3, 1, 3)])
+                                          (1, 2, 8), (3, 1, 3), (7, 2, 3),
+                                          (7, 1, 3)])
 def test_conv2d_int8_q_matches_jax(k, stride, cin, act, out, rng):
     """The int8-in conv as JAX's jitted apply_int8 computes one layer:
     acc * (s_in * s_w) + b, leaky, _requant."""
@@ -284,18 +285,38 @@ def test_conv2d_int8_q_raises(kw, error):
                          s_out=1.0, **kw)
 
 
-def test_apply_int8_raises_on_logistic():
+def test_apply_int8_raises_on_logistic(monkeypatch):
+    """It no longer raises: a quantized logistic conv (narrow-leaky's layer
+    1) runs the float32-out int8-in entry, the sigmoid, the requantize, and
+    equals JAX's apply_int8 at every requantize, as the leaky nets do."""
     cfg, specs = model("narrow-leaky", SIZE)
-    specs = specs[:1] + (TS.Conv(16, 3, act="logistic"),) + specs[2:]
-    port = folded_params(specs, SIZE)[0]
-    scales = TQ.calibrate_activations(specs, port, [images(1, SIZE)],
-                                      cfg=cfg)
-    qparams = TQ.quantize_params(specs, port, scales)
-    outs = TQ.calibrate_outputs(specs, port, [images(1, SIZE)], cfg=cfg)
-    x = torch.zeros((1, 3, SIZE, SIZE)).contiguous(
-        memory_format=torch.channels_last)
-    with pytest.raises(NotImplementedError, match="logistic"):
-        TQ.apply_int8(specs, qparams, outs, x)
+    specs = specs[:1] + (TS.Conv(16, 3, stride=2, act="logistic"),) + \
+        specs[2:]
+    jcfg, jspecs = jax_model("narrow-leaky", SIZE)
+    jspecs = jspecs[:1] + (type(jspecs[0])(16, 3, stride=2,
+                                           act="logistic"),) + jspecs[2:]
+    port, jaxp = folded_params(specs, SIZE)
+    calib = [images(2, SIZE, seed=3)]
+    act = JQ.calibrate_activations(jspecs, jaxp, calib, cfg=jcfg)
+    outs = JQ.calibrate_outputs(jspecs, jaxp, calib, cfg=jcfg)
+    qparams = JQ.quantize_params(jspecs, jaxp, act,
+                                 skip=JQ.head_conv_layers(jspecs))
+    assert "w_q" in qparams["L001"]
+    x = np.asarray(jax_normalize(jnp.asarray(images(2, SIZE)), jcfg))
+    jfeats, jevents = _jax_apply(jspecs, qparams, outs, x, monkeypatch)
+    xt = torch.from_numpy(x.copy()).permute(0, 3, 1, 2)
+    dets, layers = TQ.apply_int8_layers(specs, TW.params_from_jax(qparams),
+                                        outs, xt)
+    assert layers[1][0].dtype == torch.int8
+    events = _port_events(specs, layers, TQ._requant_from(xt, None,
+                                                          outs[-1]),
+                          outs, TQ.head_conv_layers(specs))
+    assert len(events) == len(jevents)
+    counts = [int((got.permute(0, 2, 3, 1).numpy() != np.asarray(want))
+                  .sum()) for (_, got), (_, want) in zip(events, jevents)]
+    assert counts == [0] * len(counts), counts
+    for (feat, _), want in zip(dets, jfeats):
+        np.testing.assert_allclose(feat.numpy(), np.asarray(want), **PARITY)
 
 
 def _exact_fma(a, b, c):

@@ -24,7 +24,9 @@ def test_port_imports_no_jax_and_no_triton():
     for name in ("train.loop", "train.losses", "ops.kernels.conv_bnstat",
                  "ops.preprocess", "ops.kernels.nms", "train.runner",
                  "io.cfg", "io.datacfg", "io.checkpoint", "data.datasets",
-                 "data.augment", "data.native", "data.loader"):
+                 "data.augment", "data.native", "data.loader",
+                 "eval.batched", "eval.map", "eval.classify",
+                 "post.numpy_post"):
         assert f"yolo_tensorflow_tpu_torch.{name}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -133,12 +133,10 @@ def test_cuda_detector_raises_without_gpu():
         Detector("yolov3-tiny", params={}, device="cuda")
 
 
-@pytest.mark.parametrize("options", [
-    {"letterbox": True},                    # the host letterbox (cv2)
-    {"mesh": True}, {"donate": True}],
-    ids=["letterbox", "mesh", "donate"])
+@pytest.mark.parametrize("options", [{"mesh": True}, {"donate": True}],
+                         ids=["mesh", "donate"])
 def test_unported_options_raise(options):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
         Detector("yolov3-tiny", params={}, device="cpu", **options)
 
 

@@ -10,7 +10,14 @@ package's ops/quant.py, on the same numpy parameters and inputs.
   ``tools/probe_int8_3x3.pallas_conv3x3_int8`` run in interpret mode.
 - ``conv2d_int8`` equals the jitted JAX ``quant.conv2d_int8`` (+ leaky) to
   1 ulp in float32 (both round the epilogue as one fma; the bound stays
-  1 ulp) and exactly in bfloat16.
+  1 ulp) and exactly in bfloat16; at yolov1's 7x7 stride-2 first conv
+  (narrow_v1_spec's, its params quantized by the JAX package) exactly in
+  float32 too.
+- The narrow int8 v1 Detector (the 7x7 conv quantized with the rest, the
+  connected head float) gives the JAX Detector's num, classes and valid,
+  boxes and scores at rtol 1e-4 / atol 1e-5; a quantized logistic conv
+  (``engine.QuantConv``: the kernel's linear epilogue, then the sigmoid)
+  equals JAX's conv2d_int8 + sigmoid to 1 ulp.
 On CPU tensors the wrapper runs the plain version; ``launches`` stays put.
 """
 
@@ -108,7 +115,7 @@ def _oihw(w_hwio):
 
 
 @pytest.mark.parametrize("cin", [3, 16])
-@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
+@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2), (7, 2)])
 def test_accumulator_matches_lax_conv(k, stride, cin, rng):
     x = rng.integers(-127, 128, (2, 9, 11, cin)).astype(np.int8)
     w = rng.integers(-127, 128, (k, k, cin, 24)).astype(np.int8)
@@ -156,7 +163,8 @@ def _ulps(a, b):
 @pytest.mark.parametrize("act", ["linear", "leaky"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k,stride,cin", [(1, 1, 16), (3, 1, 16),
-                                          (3, 2, 16), (3, 1, 3)])
+                                          (3, 2, 16), (3, 1, 3), (7, 2, 3),
+                                          (7, 1, 3)])
 def test_conv2d_int8_matches_jax(k, stride, cin, dtype, act, rng):
     tdt, jdt = DTYPES[dtype]
     x = jnp.asarray(rng.standard_normal((2, 9, 9, cin), dtype=np.float32)
@@ -223,3 +231,97 @@ def test_bad_operands_raise(change, error):
         kw["epilogue_dtype"] = torch.float16
     with pytest.raises(error):
         K.conv2d_int8(**args, **kw)
+
+
+@pytest.fixture(scope="module")
+def int8_v1():
+    """The narrow v1 net's int8 params from the JAX package: every conv
+    quantized (the 7x7 stride-2 first one too), the connected head float."""
+    from torch_parity import jax_int8_params
+    return jax_int8_params("narrow-v1", SIZE)
+
+
+@pytest.mark.parametrize("act", ["linear", "leaky"])
+def test_conv2d_int8_7x7_matches_jax_exactly(int8_v1, act):
+    """narrow_v1_spec's first conv (Cin 3, 7x7, stride 2, pad 3) with the
+    JAX package's quantized params, f32 epilogue: bit for bit."""
+    _, specs, _, _, qparams = int8_v1
+    p = qparams["L000"]
+    assert specs[0].size == 7 and specs[0].stride == 2
+    assert np.asarray(p["w_q"]).shape == (7, 7, 3, 8)
+    x = np.asarray(images(2, SIZE), np.float32) / 127.5 - 1.0
+
+    def jax_fn(x):
+        y = JQ.conv2d_int8(x, p["w_q"], p["s_x"], p["s_w"], p["b"],
+                           stride=2, epilogue_dtype=jnp.float32)
+        return JL.leaky_relu(y) if act == "leaky" else y
+
+    want = np.asarray(jax.jit(jax_fn)(jnp.asarray(x)))
+    q = TW.params_from_jax(qparams)["L000"]
+    args = (_nchw(x).contiguous(memory_format=torch.channels_last),
+            torch.from_numpy(q["w_q"]).contiguous(
+                memory_format=torch.channels_last), float(q["s_x"]),
+            torch.from_numpy(q["s_w"]), torch.from_numpy(q["b"]))
+    got = K.conv2d_int8_plain(*args, stride=2, act=act)
+    assert got.shape == (2, 8, SIZE // 2, SIZE // 2)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
+    before = K.launches
+    np.testing.assert_array_equal(
+        K.conv2d_int8(*args, stride=2, act=act).numpy(), got.numpy())
+    assert K.launches == before
+
+
+def test_int8_v1_detector_matches_jax(int8_v1):
+    from yolo_tensorflow_tpu.pipeline import Detector as JaxDetector
+    from yolo_tensorflow_tpu_torch.models import engine as TE
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    cfg, specs, jcfg, jspecs, qparams = int8_v1
+    opts = dict(conf_threshold=0.2, num_candidates=64)
+    imgs = images(2, SIZE)
+    want = JaxDetector(jcfg, params=qparams, specs=jspecs,
+                       **opts).detect_batch(imgs)
+    det = Detector(cfg, params=TW.params_from_jax(qparams), specs=specs,
+                   device="cpu", **opts)
+    quant = [m for m in det.network.modules()
+             if isinstance(m, TE.QuantConv)]
+    assert len(quant) == 3 and quant[0].w_q.shape[-1] == 7
+    got = det.detect_batch(imgs)
+    assert (got.num > 0).all()
+    for name in ("num", "classes", "valid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    for name in ("boxes", "scores"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_conv_applies_logistic_after_the_kernel(dtype, rng):
+    """A quantized logistic conv: the kernel's linear epilogue in the
+    compute dtype, then the sigmoid in it, as JAX's engine.apply runs
+    conv2d_int8 and then its activation."""
+    from yolo_tensorflow_tpu_torch.models import engine as TE
+    from yolo_tensorflow_tpu_torch.models import specs as TS
+    tdt, jdt = DTYPES[dtype]
+    w = rng.integers(-127, 128, (3, 3, 16, 24)).astype(np.int8)
+    p = {"w_q": w, "s_w": (rng.uniform(0.5, 1.5, 24) / 127).astype(
+        np.float32), "s_x": np.float32(0.027),
+         "b": rng.standard_normal(24).astype(np.float32)}
+    x = rng.standard_normal((2, 9, 9, 16), dtype=np.float32).astype(
+        jnp.bfloat16 if dtype == "bfloat16" else np.float32)
+    want = jax.jit(lambda x: JL.activate(JQ.conv2d_int8(
+        x, p["w_q"], p["s_x"], p["s_w"], p["b"], epilogue_dtype=jdt),
+        "logistic"))(jnp.asarray(x))
+    net = TE.Network((TS.Conv(24, 3, act="logistic"),),
+                     TW.params_from_jax({"L000": p}), dtype=tdt)
+    assert isinstance(net.convs["L000"], TE.QuantConv)
+    got = net.layer_outputs(_nchw(np.asarray(x, np.float32)).to(tdt))[0]
+    assert got.dtype == tdt
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        assert _ulps(got, want).max() <= 1
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=2 ** -8)

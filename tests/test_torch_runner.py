@@ -166,7 +166,6 @@ def test_run_training_classifier(tmp_path, capsys):
 @pytest.mark.parametrize("kw,item", [
     (dict(num_data=2), "item 10"), (dict(num_spatial=2), "item 10"),
     (dict(coordinator="localhost:1234"), "item 10"),
-    (dict(val_list="x", eval_every=2), "item 11"),
     (dict(qat=True), "item 13"), (dict(remat_every=2), "item 9")])
 def test_unported_runner_options_raise(kw, item, tmp_path):
     """Each raises before a sample is read or a step taken."""
@@ -189,3 +188,107 @@ def test_aug_from_cfg_matches_jax(head, h0):
     from yolo_tensorflow_tpu.train import runner as JR
     net = {"hue": ".1", "saturation": "1.5", "exposure": "1.4"}
     assert TR.aug_from_cfg(net, h0, head) == JR.aug_from_cfg(net, h0, head)
+
+
+def _jax_state(state):
+    """The port's TrainState as the JAX package's evaluate_model and
+    evaluate_classifier read one: HWIO params and batch stats, numpy."""
+    import types
+    from torch_parity import to_jax
+
+    def arrays(tree):
+        return {k: {n: v.detach().cpu().numpy().copy() for n, v in p.items()}
+                for k, p in tree.items()}
+
+    return types.SimpleNamespace(params=to_jax(arrays(state.params)),
+                                 batch_stats=arrays(state.batch_stats))
+
+
+def _eval_lines(out):
+    return [line for line in out.splitlines() if ": val " in line]
+
+
+def test_run_training_evaluates_a_detector(tmp_path, capsys):
+    """val_list with eval_every on the narrow v2 net from a .cfg: the mAP
+    printed at step 2 (stretch Detector, cv2) and evaluate_model's result
+    equal the JAX package's evaluate_model on the same parameters."""
+    from yolo_tensorflow_tpu import config as JC
+    from yolo_tensorflow_tpu.train import runner as JR
+    from yolo_tensorflow_tpu_torch import config as TC
+    lst = _dataset(tmp_path)
+    cfg, specs = model("narrow-v2", 64)
+    path = tmp_path / "m.cfg"
+    path.write_text(TCfg.specs_to_cfg(cfg, specs, batch=4))
+    scenes = dict(zip(open(lst).read().split(), _scenes()[0]))
+    args = _args(lst, tmp_path / "ck", 2, model=None, cfg=str(path),
+                 input_size=None, lr=None, burn_in=None, batch_size=None,
+                 val_list=lst, eval_every=2)
+    state = TR.run_training(args, read_fn=scenes.__getitem__)
+    out = capsys.readouterr().out
+    jcfg, jspecs = JC.config_from_cfg(str(path))
+    want = JR.evaluate_model(jcfg, jspecs, _jax_state(state),
+                             JD.load_darknet_list(lst), limit=200)
+    pcfg, pspecs = TC.config_from_cfg(str(path))
+    cache = []
+    for _ in range(2):          # the second round reuses the Detector
+        got = TR.evaluate_model(pcfg, pspecs, state,
+                                TD.load_darknet_list(lst), limit=200,
+                                detector_cache=cache,
+                                read_fn=scenes.__getitem__)
+        assert len(cache) == 1
+        assert got["map"] == want["map"]
+        assert got["num_classes_evaluated"] == want["num_classes_evaluated"]
+        np.testing.assert_array_equal(got["ap_per_class"],
+                                      want["ap_per_class"])
+    assert _eval_lines(out) == [
+        f"step 2: val mAP@0.5 = {want['map']:.4f} "
+        f"({want['num_classes_evaluated']} classes)"]
+
+
+def test_run_training_evaluates_a_classifier(tmp_path, capsys):
+    """val_list with eval_every on the narrow classifier from a .cfg, the
+    images through read_fn: the top-1 printed at steps 2 and 4 and
+    evaluate_classifier's equal the JAX package's evaluate_classifier
+    (mode 'crop') on the same parameters."""
+    import cv2
+    from yolo_tensorflow_tpu import config as JC
+    from yolo_tensorflow_tpu.train import runner as JR
+    from yolo_tensorflow_tpu_torch import config as TC
+    names = ("qdark", "qbright", "qred", "qblue")
+    colours = ((30, 30, 30), (220, 220, 220), (200, 20, 20), (20, 20, 200))
+    rng = np.random.default_rng(4)
+    paths, pixels = [], {}
+    for i in range(8):
+        p = str(tmp_path / f"{names[i % 4]}_{i}.png")
+        img = np.clip(np.asarray(colours[i % 4], np.int16)
+                      + rng.integers(-20, 21, (40, 48, 3)), 0,
+                      255).astype(np.uint8)
+        cv2.imwrite(p, img[..., ::-1])
+        paths.append(p)
+        pixels[p] = img
+    (tmp_path / "train.txt").write_text("\n".join(paths) + "\n")
+    (tmp_path / "names.txt").write_text("\n".join(names) + "\n")
+    cfg, specs = model("narrow-cls", 32)
+    path = tmp_path / "c.cfg"
+    path.write_text(TCfg.specs_to_cfg(cfg, specs, batch=4))
+    lst = str(tmp_path / "train.txt")
+    args = _args(lst, tmp_path / "ck", 4, model=None, cfg=str(path),
+                 names=str(tmp_path / "names.txt"), input_size=None,
+                 lr=None, burn_in=None, batch_size=None, val_list=lst,
+                 eval_every=2)
+    state = TR.run_training(args, read_fn=pixels.__getitem__)
+    out = capsys.readouterr().out
+    jcfg, jspecs = JC.config_from_cfg(
+        str(path), class_names_file=str(tmp_path / "names.txt"))
+    want = JR.evaluate_classifier(jcfg, _jax_state(state),
+                                  JD.load_classifier_list(lst, names),
+                                  limit=200, specs=jspecs)
+    pcfg, pspecs = TC.config_from_cfg(
+        str(path), class_names_file=str(tmp_path / "names.txt"))
+    got = TR.evaluate_classifier(pcfg, state,
+                                 TD.load_classifier_list(lst, names),
+                                 limit=200, specs=pspecs,
+                                 read_fn=pixels.__getitem__)
+    assert got == want
+    lines = _eval_lines(out)
+    assert len(lines) == 2 and lines[-1] == f"step 4: val top-1 = {want:.4f}"

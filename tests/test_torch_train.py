@@ -214,8 +214,9 @@ def test_other_losses_raise(name):
     """The v2, v1 and classifier losses are ported (tests/
     test_torch_losses.py); what of their training still raises names its
     reason: the YOLO9000 softmax tree (Queue 1 item 13), v1's ``random``
-    responsibility without a generator, the classifier's in-training
-    evaluation (Queue 1 item 11)."""
+    responsibility without a generator, the classifier's QAT training
+    (Queue 1 item 13; its in-training evaluation is ported,
+    tests/test_torch_runner.py)."""
     cfg = TL.C.get_config(name)
     if cfg.head == 2:
         raw = torch.zeros((1, 13, 13, 5 * 85))
@@ -235,9 +236,9 @@ def test_other_losses_raise(name):
         from yolo_tensorflow_tpu_torch.train import runner
         probs = torch.full((1, 1000), 1e-3)
         _, m = TL.loss_for_config(cfg, (), [probs], torch.zeros(1))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
             runner.run_training(argparse.Namespace(
-                model=name, list="x", val_list="x", eval_every=1))
+                model=name, list="x", val_list="x", eval_every=1, qat=True))
     assert np.isfinite(float(m["cost"]))
 
 

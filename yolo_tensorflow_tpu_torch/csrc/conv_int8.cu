@@ -63,6 +63,15 @@
 //   registers (no scratch pass), packs them four to a word, and takes the
 //   int32 dot products with dp4a against the packed weights in shared
 //   memory; 16-byte stores. No tensor cores: K = 27 would idle most of a tile.
+// - Cin = 3, k = 7, Cout <= 64 (yolov1's first conv, 7x7 stride 2): the same
+//   direct kernel at K = 147 (37 packed words) and a 64-channel tile, after
+//   the quantize pass: each input element is read by up to 49 output
+//   pixels, so the division is paid once per element in the pass and the
+//   direct kernel packs int8 bytes, as for the int8-in entry. Bound at
+//   yolov1-448, batch 64: 60.4 G int8 operations (0.031 ms at 1,979 TOPS)
+//   and 488 MB (bf16 in and out), 0.146 ms at 3.35 TB/s: bytes. The kernel
+//   does 37 dp4a per output value on the CUDA cores, 7.6 G at batch 64, so
+//   it is set by the dp4a rate, not by the bound.
 // - Epilogue of the wgmma instances: dequantize + bias + activation on the
 //   accumulator fragments, staged through the freed ring and written 16
 //   bytes a thread along Cout.
@@ -80,9 +89,15 @@ namespace {
 constexpr int kBM = igemm::kBM;                 // output pixels per CTA
 constexpr int kQuantThreads = 256;
 constexpr int kDirectThreads = kBM;             // one output pixel each
-constexpr int kDirectK = 27;
-constexpr int kDirectWords = 7;                 // 27 bytes of K, padded to 28
-constexpr int kDirectN = 32;
+constexpr int kDirectN3 = 32;                   // Cout tile of k = 3
+constexpr int kDirectN7 = 64;                   // Cout tile of k = 7
+
+// K = ks * ks * 3 bytes of the direct kernel, and the packed words holding
+// them (27 -> 7 words, 147 -> 37)
+__host__ __device__ constexpr int direct_k(int ks) { return ks * ks * 3; }
+__host__ __device__ constexpr int direct_words(int ks) {
+  return (direct_k(ks) + 3) / 4;
+}
 constexpr float kAlpha = 0.1f;
 constexpr float kAlphaBf16 = 0.10009765625f;    // bf16(0.1)
 
@@ -268,52 +283,53 @@ conv_int8_wgmma(const igemm::Conv g, const Epilogue p) {
                                  g.cout, p.y_vec != 0);
 }
 
-// Cin = 3, k = 3, Cout <= 32 and Cout a whole number of 16-byte chunks of
-// Tout: no tensor cores, and the quantize in registers (an int8 input is
-// packed as it is). Thread t of CTA i owns output pixel 128 i + t. The
-// CTA's 128 output rows are one contiguous run of y: they are staged in
+// Cin = 3, a KS x KS conv, Cout <= N and Cout a whole number of 16-byte
+// chunks of Tout: no tensor cores, and the quantize in registers (an int8
+// input is packed as it is). Thread t of CTA i owns output pixel 128 i + t.
+// The CTA's 128 output rows are one contiguous run of y: they are staged in
 // shared memory and written as whole 16-byte chunks, neighbouring threads
 // neighbouring chunks (a thread storing its own row would half-fill every
 // sector).
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, int KS, int N>
 __global__ void __launch_bounds__(kDirectThreads)
 conv_int8_direct(const igemm::Conv g, const Epilogue p) {
+  constexpr int kK = direct_k(KS);
+  constexpr int kWords = direct_words(KS);
   constexpr int kEPV = 16 / sizeof(Tout);       // elements per 16 bytes
-  constexpr int kPitch = kDirectN * sizeof(Tout) + 16;
-  __shared__ __align__(16) int w_s[kDirectWords][kDirectN];
+  constexpr int kPitch = N * sizeof(Tout) + 16;
+  __shared__ __align__(16) int w_s[kWords][N];
   __shared__ __align__(16) uint8_t y_s[kDirectThreads * kPitch];
-  __shared__ float sc_s[kDirectN];
-  __shared__ float b_s[kDirectN];
+  __shared__ float sc_s[N];
+  __shared__ float b_s[N];
   const Tin* x = static_cast<const Tin*>(g.a);
   const int8_t* wq = static_cast<const int8_t*>(g.b);
   const int tid = threadIdx.x;
   const int m0 = static_cast<int>(blockIdx.x) * kDirectThreads;
   const int m = m0 + tid;
 
-  // word j of channel o: weight bytes 4 j .. 4 j + 3 of its 27, then zeros
-  for (int i = tid; i < kDirectWords * kDirectN; i += kDirectThreads) {
-    const int o = i % kDirectN;
-    const int j = i / kDirectN;
+  // word j of channel o: weight bytes 4 j .. 4 j + 3 of its kK, then zeros
+  for (int i = tid; i < kWords * N; i += kDirectThreads) {
+    const int o = i % N;
+    const int j = i / N;
     uint32_t word = 0u;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int k = 4 * j + e;
-      if (o < g.cout && k < kDirectK) {
-        word |= (static_cast<uint32_t>(wq[o * kDirectK + k]) & 0xffu)
-                << (8 * e);
+      if (o < g.cout && k < kK) {
+        word |= (static_cast<uint32_t>(wq[o * kK + k]) & 0xffu) << (8 * e);
       }
     }
     w_s[j][o] = static_cast<int>(word);
   }
-  if (tid < kDirectN) {
+  if (tid < N) {
     const bool in = tid < g.cout;
     sc_s[tid] = in ? __fmul_rn(p.s_x, p.s_w[tid]) : 0.0f;
     b_s[tid] = in ? p.bias[tid] : 0.0f;
   }
 
-  uint32_t qw[kDirectWords];
+  uint32_t qw[kWords];
 #pragma unroll
-  for (int j = 0; j < kDirectWords; ++j) qw[j] = 0u;
+  for (int j = 0; j < kWords; ++j) qw[j] = 0u;
   if (m < g.m) {
     const int hw = g.ho * g.wo;
     const int img = m / hw;
@@ -322,9 +338,9 @@ conv_int8_direct(const igemm::Conv g, const Epilogue p) {
     const int iy0 = oy * g.stride - g.pad;
     const int ix0 = (rem - oy * g.wo) * g.stride - g.pad;
 #pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
+    for (int ky = 0; ky < KS; ++ky) {
 #pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
+      for (int kx = 0; kx < KS; ++kx) {
         const int iy = iy0 + ky;
         const int ix = ix0 + kx;
         if (iy >= 0 && iy < g.h && ix >= 0 && ix < g.w) {
@@ -332,7 +348,7 @@ conv_int8_direct(const igemm::Conv g, const Epilogue p) {
               x + (static_cast<int64_t>(img) * g.h * g.w + iy * g.w + ix) * 3;
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
-            const int k = (ky * 3 + kx) * 3 + c;
+            const int k = (ky * KS + kx) * 3 + c;
             qw[k / 4] |= input_byte(src[c], p.s_x) << (8 * (k % 4));
           }
         }
@@ -341,14 +357,14 @@ conv_int8_direct(const igemm::Conv g, const Epilogue p) {
   }
   __syncthreads();
 
-  int acc[kDirectN];
+  int acc[N];
 #pragma unroll
-  for (int o = 0; o < kDirectN; ++o) acc[o] = 0;
+  for (int o = 0; o < N; ++o) acc[o] = 0;
 #pragma unroll
-  for (int j = 0; j < kDirectWords; ++j) {
+  for (int j = 0; j < kWords; ++j) {
     const int a = static_cast<int>(qw[j]);
 #pragma unroll
-    for (int o = 0; o < kDirectN; o += 4) {
+    for (int o = 0; o < N; o += 4) {
       const int4 wv = *reinterpret_cast<const int4*>(&w_s[j][o]);
       acc[o] = __dp4a(a, wv.x, acc[o]);
       acc[o + 1] = __dp4a(a, wv.y, acc[o + 1]);
@@ -358,7 +374,7 @@ conv_int8_direct(const igemm::Conv g, const Epilogue p) {
   }
 
 #pragma unroll
-  for (int o = 0; o < kDirectN; o += kEPV) {
+  for (int o = 0; o < N; o += kEPV) {
     alignas(16) Tout v[kEPV];
 #pragma unroll
     for (int e = 0; e < kEPV; e += 2) {
@@ -426,12 +442,32 @@ cudaError_t launch_bn(int bn, const igemm::Conv& g, const Epilogue& p,
   }
 }
 
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, int KS, int N>
 cudaError_t launch_direct(const igemm::Conv& g, const Epilogue& p,
                           cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>((g.m + kBM - 1) / kBM);
-  conv_int8_direct<Tin, Tout><<<blocks, kDirectThreads, 0, s>>>(g, p);
+  conv_int8_direct<Tin, Tout, KS, N><<<blocks, kDirectThreads, 0, s>>>(g, p);
   return cudaGetLastError();
+}
+
+// The k = 7 direct kernel on int8 input (the quantize pass's scratch, or the
+// int8-in entry's own input), at the Cout tile `bn` (32 or 64).
+template <typename Tout>
+cudaError_t launch_direct7(int bn, const igemm::Conv& g, const Epilogue& p,
+                           cudaStream_t s) {
+  return bn == kDirectN3 ? launch_direct<int8_t, Tout, 7, kDirectN3>(g, p, s)
+                         : launch_direct<int8_t, Tout, 7, kDirectN7>(g, p, s);
+}
+
+// Whether the direct kernel takes this conv: Cin = 3, k = 3 with Cout <= 32
+// or k = 7 with Cout <= 64 at a tile `bn` that covers it, Cout in whole
+// 16-byte chunks of the output (`chunk` elements) and y 16-byte aligned.
+bool direct_fits(int cin, int ksize, int cout, int bn, int chunk,
+                 const void* y) {
+  const bool k3 = ksize == 3 && cout <= kDirectN3;
+  const bool k7 = ksize == 7 && cout <= bn &&
+                  (bn == kDirectN3 || bn == kDirectN7);
+  return cin == 3 && (k3 || k7) && cout % chunk == 0 && aligned16(y);
 }
 
 }  // namespace
@@ -458,12 +494,13 @@ extern "C" int yolo_quantize_act(const void* x, int x_bf16, void* q,
 //      element: any cin and any alignment of wq;
 //   1  quantize pass, then the wgmma GEMM fed by cp.async: cin % 16 == 0
 //      and wq 16-byte aligned;
-//   2  the direct kernel: cin == 3, ksize == 3, cout <= 32, cout % 8 == 0
-//      and y 16-byte aligned.
-// `bn` is the output-channel tile of instances 0 and 1: 128, 64 or 32. An
-// instance whose conditions do not hold is refused with
-// cudaErrorInvalidValue. Launches on `stream` and returns the first CUDA
-// error, or 0.
+//   2  the direct kernel: cin == 3, cout % 8 == 0, y 16-byte aligned, and
+//      ksize == 3 with cout <= 32 (it quantizes in registers; xq unused), or
+//      ksize == 7 with cout <= bn (the quantize pass first, into xq).
+// `bn` is the output-channel tile: 128, 64 or 32 for instances 0 and 1, 64
+// or 32 for instance 2 at ksize 7. An instance whose conditions do not hold
+// is refused with cudaErrorInvalidValue. Launches on `stream` and returns
+// the first CUDA error, or 0.
 extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, void* xq,
                                 const void* wq, float s_x, const void* s_w,
                                 const void* bias, void* y, int y_bf16,
@@ -474,21 +511,22 @@ extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, void* xq,
       stride < 1 || pad < 0 || instance < 0 || instance > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (instance != 2 && !aligned16(xq)) {
+  // the direct kernel quantizes in registers at k = 3 only
+  const bool fused_quant = instance == 2 && ksize == 3;
+  if (!fused_quant && (xq == nullptr || (instance != 2 && !aligned16(xq)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (instance == 1 && (cin % 16 != 0 || !aligned16(wq))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (instance == 2 && (cin != 3 || ksize != 3 || cout > kDirectN ||
-                        cout % 8 != 0 || !aligned16(y))) {
+  if (instance == 2 && !direct_fits(cin, ksize, cout, bn, 8, y)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   igemm::Conv g;
-  g.a = instance == 2 ? x : xq;
+  g.a = fused_quant ? x : xq;
   g.b = wq;
   if (!igemm::set_shape(&g, batch, h, w, cin, cout, ksize, stride, pad,
-                        instance == 2 ? kDirectN : bn)) {
+                        fused_quant ? kDirectN3 : bn)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (g.m == 0) return 0;
@@ -502,13 +540,14 @@ extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, void* xq,
   p.y_vec = cout % (y_bf16 ? 8 : 4) == 0 && aligned16(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (instance == 2) {
+  if (fused_quant) {
+    using BF = __nv_bfloat16;
     if (x_bf16) {
-      err = y_bf16 ? launch_direct<__nv_bfloat16, __nv_bfloat16>(g, p, s)
-                   : launch_direct<__nv_bfloat16, float>(g, p, s);
+      err = y_bf16 ? launch_direct<BF, BF, 3, kDirectN3>(g, p, s)
+                   : launch_direct<BF, float, 3, kDirectN3>(g, p, s);
     } else {
-      err = y_bf16 ? launch_direct<float, __nv_bfloat16>(g, p, s)
-                   : launch_direct<float, float>(g, p, s);
+      err = y_bf16 ? launch_direct<float, BF, 3, kDirectN3>(g, p, s)
+                   : launch_direct<float, float, 3, kDirectN3>(g, p, s);
     }
     return static_cast<int>(err);
   }
@@ -516,7 +555,10 @@ extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, void* xq,
   err = x_bf16 ? launch_quantize<__nv_bfloat16>(x, xq, n, s_x, s)
                : launch_quantize<float>(x, xq, n, s_x, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (instance == 1) {
+  if (instance == 2) {
+    err = y_bf16 ? launch_direct7<__nv_bfloat16>(bn, g, p, s)
+                 : launch_direct7<float>(bn, g, p, s);
+  } else if (instance == 1) {
     err = y_bf16 ? launch_bn<__nv_bfloat16, true>(bn, g, p, s)
                  : launch_bn<float, true>(bn, g, p, s);
   } else {
@@ -530,11 +572,12 @@ extern "C" int yolo_conv2d_int8(const void* x, int x_bf16, void* xq,
 // cin) int8 contiguous, the layer's input, already quantized with scale
 // s_in. wq, s_w, bias, shapes, leaky, instance and bn as yolo_conv2d_int8,
 // except that there is no quantize pass and no scratch: instances 0 and 1
-// read xq itself (instance 1 needs it 16-byte aligned), instance 2 packs its
-// bytes. y: (batch, ho, wo, cout) contiguous, int8 requantized with inv_out
-// = 1 / the output's scale (y_int8 = 1; instance 2 then needs cout % 16 ==
-// 0) or f32 (y_int8 = 0; cout % 8 == 0 for instance 2). Launches on
-// `stream` and returns the first CUDA error, or 0.
+// read xq itself (instance 1 needs it 16-byte aligned), instance 2 (k = 3,
+// or k = 7 at the tile bn) packs its bytes. y: (batch, ho, wo, cout)
+// contiguous, int8 requantized with inv_out = 1 / the output's scale
+// (y_int8 = 1; instance 2 then needs cout % 16 == 0) or f32 (y_int8 = 0;
+// cout % 8 == 0 for instance 2). Launches on `stream` and returns the first
+// CUDA error, or 0.
 extern "C" int yolo_conv2d_int8_q(const void* xq, const void* wq, float s_in,
                                   const void* s_w, const void* bias, void* y,
                                   int y_int8, float inv_out, int batch, int h,
@@ -548,15 +591,16 @@ extern "C" int yolo_conv2d_int8_q(const void* xq, const void* wq, float s_in,
   if (instance == 1 && (cin % 16 != 0 || !aligned16(wq) || !aligned16(xq))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (instance == 2 && (cin != 3 || ksize != 3 || cout > kDirectN ||
-                        cout % (y_int8 ? 16 : 8) != 0 || !aligned16(y))) {
+  if (instance == 2 &&
+      !direct_fits(cin, ksize, cout, bn, y_int8 ? 16 : 8, y)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int tile = instance == 2 && ksize == 3 ? kDirectN3 : bn;
   igemm::Conv g;
   g.a = xq;
   g.b = wq;
   if (!igemm::set_shape(&g, batch, h, w, cin, cout, ksize, stride, pad,
-                        instance == 2 ? kDirectN : bn)) {
+                        tile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (g.m == 0) return 0;
@@ -570,9 +614,12 @@ extern "C" int yolo_conv2d_int8_q(const void* xq, const void* wq, float s_in,
   p.y_vec = cout % (y_int8 ? 16 : 4) == 0 && aligned16(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (instance == 2) {
-    err = y_int8 ? launch_direct<int8_t, int8_t>(g, p, s)
-                 : launch_direct<int8_t, float>(g, p, s);
+  if (instance == 2 && ksize == 3) {
+    err = y_int8 ? launch_direct<int8_t, int8_t, 3, kDirectN3>(g, p, s)
+                 : launch_direct<int8_t, float, 3, kDirectN3>(g, p, s);
+  } else if (instance == 2) {
+    err = y_int8 ? launch_direct7<int8_t>(bn, g, p, s)
+                 : launch_direct7<float>(bn, g, p, s);
   } else if (instance == 1) {
     err = y_int8 ? launch_bn<int8_t, true>(bn, g, p, s)
                  : launch_bn<float, true>(bn, g, p, s);

@@ -25,6 +25,7 @@ import struct
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from yolo_tensorflow_tpu_torch.models import specs as S
 from yolo_tensorflow_tpu_torch.models.engine import (check_supported,
@@ -70,6 +71,31 @@ def fold_bn(w_oihw, gamma, beta, mean, var):
     w = w_oihw * inv.reshape(-1, 1, 1, 1)
     b = beta - mean * inv
     return w.astype(np.float32), b.astype(np.float32)
+
+
+def fold_params(params, batch_stats, bn_eps: float) -> dict:
+    """Trained (unfolded BN) params of the port's layout, numpy or tensors
+    -> the folded serving form, {"w", "b"} float32 numpy per layer: the TPU
+    package's fold_params with its default "tf" formula, gamma / sqrt(var +
+    eps) (training-mode BN normalizes that way), over OIHW conv kernels and
+    (In, Out) connected weights alike."""
+    def arr(v):
+        return (v.detach().float().cpu().numpy()
+                if isinstance(v, torch.Tensor) else np.asarray(v))
+
+    out = {}
+    for key, p in params.items():
+        p = {k: arr(v) for k, v in p.items()}
+        if "gamma" not in p:
+            out[key] = p
+            continue
+        st = {k: arr(v) for k, v in batch_stats[key].items()}
+        inv = p["gamma"] / np.sqrt(st["var"] + bn_eps)
+        w = p["w"]
+        scale = inv.reshape(-1, 1, 1, 1) if w.ndim == 4 else inv[None, :]
+        out[key] = {"w": (w * scale).astype(np.float32),
+                    "b": (p["beta"] - st["mean"] * inv).astype(np.float32)}
+    return out
 
 
 def _read_conv_sub(buf, ptr, cin, cout, k, bn, fold):

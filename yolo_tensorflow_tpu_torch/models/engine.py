@@ -152,7 +152,10 @@ class QuantConv(nn.Module):
     weights with per-output-channel scales s_w, and dequantize, bias and
     activation fused into the int8 kernel's epilogue, which runs in the
     network's compute dtype (float32 is the parity mode, bfloat16 serving,
-    as the TPU package's ``engine.apply``).
+    as the TPU package's ``engine.apply``). An activation the epilogue does
+    not take (logistic and the rest of ``ops.layers.activate``) follows the
+    kernel's linear epilogue, in the same dtype: the TPU package's order,
+    conv2d_int8 and then its activation.
 
     The tensors are plain attributes, not buffers: ``Module.to(dtype=)``
     would cast the float32 scales and bias to the compute dtype."""
@@ -164,7 +167,9 @@ class QuantConv(nn.Module):
         self.stride = spec.stride
         self.pad = k // 2 if spec.pad < 0 else spec.pad
         self.act = spec.act
-        Q8.check_geometry(k, self.stride, self.pad, self.act)
+        self.kernel_act = (spec.act if spec.act in Q8.ACTIVATIONS
+                           else "linear")
+        Q8.check_geometry(k, self.stride, self.pad, self.kernel_act)
         self.dtype = dtype
         self.w_q = w_q.to(device).contiguous(memory_format=torch.channels_last)
         self.s_x = float(np.float32(p["s_x"]))
@@ -174,9 +179,10 @@ class QuantConv(nn.Module):
                                  device=device)
 
     def forward(self, x):
-        return Q8.conv2d_int8(x, self.w_q, self.s_x, self.s_w, self.b,
-                              stride=self.stride, pad=self.pad, act=self.act,
-                              epilogue_dtype=self.dtype)
+        y = Q8.conv2d_int8(x, self.w_q, self.s_x, self.s_w, self.b,
+                           stride=self.stride, pad=self.pad,
+                           act=self.kernel_act, epilogue_dtype=self.dtype)
+        return y if self.kernel_act == self.act else L.activate(y, self.act)
 
 
 class DenseLayer(nn.Module):

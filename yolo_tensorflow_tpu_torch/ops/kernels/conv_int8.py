@@ -8,7 +8,8 @@ XLA emitted that conv; tools/probe_int8_3x3.py holds three Pallas versions
 of its accumulator. The kernels are in ``csrc/conv_int8.cu`` (its header
 says what bounds them and how they are laid out): a quantize pass into an
 int8 scratch tensor, then the wgmma implicit GEMM with the fused epilogue;
-the first conv (Cin = 3) takes one direct kernel instead. PyTorch has no
+the first conv (Cin = 3, 3x3 or 7x7) takes a direct kernel instead, after
+the quantize pass at 7x7. PyTorch has no
 int8 convolution on CUDA, so there is no library call that computes this.
 
 Layouts are the port's: x is NCHW in channels-last memory (the NHWC bytes),
@@ -41,16 +42,18 @@ launches = 0
 launches_q = 0
 
 ACTIVATIONS = ("linear", "leaky")
+KSIZES = (1, 3, 7)
 EPILOGUE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_geometry(k: int, stride: int, pad: int, act: str) -> None:
     """Raise NotImplementedError for a conv the int8 kernel does not take:
-    square k in {1, 3}, stride in {1, 2}, darknet padding k // 2, linear or
-    leaky."""
-    if k not in (1, 3) or stride not in (1, 2) or pad != k // 2:
+    square k in KSIZES, stride in {1, 2}, darknet padding k // 2, linear or
+    leaky in the epilogue (``engine.QuantConv`` applies any other
+    activation after a linear epilogue)."""
+    if k not in KSIZES or stride not in (1, 2) or pad != k // 2:
         raise NotImplementedError(
-            f"int8 conv takes k in (1, 3), stride in (1, 2) and padding "
+            f"int8 conv takes k in {KSIZES}, stride in (1, 2) and padding "
             f"k // 2, not k={k} stride={stride} pad={pad} (ROADMAP.md, "
             "'int8')")
     if act not in ACTIVATIONS:
@@ -183,8 +186,9 @@ def plan(x, w_q):
     """(instance, BN) of the kernel that a CUDA x and w_q launch: the wgmma
     main loop fed by cp.async (``wgmma``) or element by element
     (``gather``), both after the quantize pass, or the direct first-conv
-    kernel. The pass writes an aligned scratch tensor, so of the operands
-    only the weights' alignment matters."""
+    kernel (after the pass at 7x7, where BN is its Cout tile). The pass
+    writes an aligned scratch tensor, so of the operands only the weights'
+    alignment matters."""
     cout, cin, k = w_q.shape[0], w_q.shape[1], w_q.shape[-1]
     return (igemm.pick_instance(cin, cout, k, 1, w_q.data_ptr() % 16 == 0),
             igemm.pick_bn(cout, 1))
@@ -200,8 +204,9 @@ def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype):
     if y.numel() == 0:
         return y
     instance, bn = plan(x, w_q)
-    # the quantize pass's output, the GEMM's A operand (NHWC int8)
-    xq = (None if instance == "direct" else
+    # the quantize pass's output, the GEMM's A operand (NHWC int8); the 3x3
+    # direct kernel quantizes in registers and takes none
+    xq = (None if instance == "direct" and k == 3 else
           torch.empty(x.numel(), dtype=torch.int8, device=x.device))
     lib = build.load()
     with torch.cuda.device(x.device):

@@ -13,7 +13,9 @@ from __future__ import annotations
 
 BM = 128                       # output pixels per CTA
 BN_TILES = (256, 128, 64, 32)  # output channels per CTA
-DIRECT_MAX_COUT = 32
+# the direct first-conv kernels (Cin = 3, no tensor cores): kernel size ->
+# the most output channels one takes
+DIRECT_MAX_COUT = {3: 32, 7: 64}
 # instance names, and the codes the C entry points take
 INSTANCES = {"gather": 0, "wgmma": 1, "direct": 2}
 
@@ -34,14 +36,15 @@ def pick_bn(cout: int, elem_bytes: int) -> int:
 
 def pick_instance(cin: int, cout: int, ksize: int, elem_bytes: int,
                   aligned: bool, out_chunk: int = 8) -> str:
-    """``direct``: the first conv of a network (Cin = 3, 3x3, Cout <= 32 in
-    whole 16-byte stores: a multiple of ``out_chunk``, 16 for int8 out), no
-    tensor cores. ``wgmma``: the cp.async ring,
+    """``direct``: the first conv of a network (Cin = 3, 3x3 with Cout <=
+    32 or 7x7 with Cout <= 64, in whole 16-byte stores: a multiple of
+    ``out_chunk``, 16 for int8 out), no tensor cores. ``wgmma``: the
+    cp.async ring,
     which copies 16 bytes of one tap at a time, so a pixel's Cin elements
     (``elem_bytes`` each) must fill whole 16-byte chunks and the operands
     (``aligned``) must start on one. ``gather``: every other conv, the same
     ring filled element by element."""
-    if (cin == 3 and ksize == 3 and cout <= DIRECT_MAX_COUT
+    if (cin == 3 and cout <= DIRECT_MAX_COUT.get(ksize, 0)
             and cout % out_chunk == 0):
         return "direct"
     if aligned and (cin * elem_bytes) % 16 == 0:

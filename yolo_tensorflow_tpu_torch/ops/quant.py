@@ -188,19 +188,25 @@ def _add(a, b):
     return ta + tb
 
 
-def _conv_int8(spec, i, p, cur, cur_s, s_out, quantized):
+def _conv_int8(spec, p, cur, cur_s, s_out, quantized):
     """One conv of ``apply_int8`` -> (output, its scale or None)."""
     pad = spec.pad if spec.pad >= 0 else spec.size // 2
-    if quantized:
+    if quantized and spec.act in Q8.ACTIVATIONS:
         y = Q8.conv2d_int8_q(cur.contiguous(memory_format=torch.channels_last),
                              cur_s, p["w_q"], p["s_w"], p["b"],
                              stride=spec.stride, pad=pad, act=spec.act,
                              s_out=s_out)
         return y, s_out
-    if spec.act not in ("linear", "leaky"):
-        raise NotImplementedError(
-            f"layer {i}: the int8-activation path runs linear and leaky "
-            f"convs, not {spec.act!r} (ROADMAP.md, 'int8')")
+    if quantized:
+        # an activation the epilogue does not take: the float32-out entry,
+        # the activation, then the requantize, as the TPU package orders
+        # them
+        y = L.activate(Q8.conv2d_int8_q(
+            cur.contiguous(memory_format=torch.channels_last), cur_s,
+            p["w_q"], p["s_w"], p["b"], stride=spec.stride, pad=pad),
+            spec.act)
+        return (y, None) if s_out is None else (_requant_from(y, None, s_out),
+                                                s_out)
     w = (p["w_q"].float() * p["s_w"].reshape(-1, 1, 1, 1) if "w_q" in p
          else p["w"])
     y = L.activate(L.conv2d(_to_float(cur, cur_s), w, p["b"],
@@ -221,10 +227,10 @@ def apply_int8(specs, qparams, out_scales: Dict[int, float], x_norm, *,
     A conv whose params hold ``w_q`` and whose input is int8 (and which is
     not in ``skip``, by default the head convs) runs ``conv2d_int8_q``: the
     int8-in kernel on a CUDA input, int8 out where the layer has an out
-    scale. Other convs run in float32 (TF32 off) on the dequantized input
-    and weights. Linear and leaky convs only (logistic, which the TPU
-    package also applies here, raises, as its int8 kernel epilogue is not
-    written)."""
+    scale; an activation other than linear or leaky (logistic, ...) is
+    applied to the kernel's float32 output and requantized after it. Other
+    convs run in float32 (TF32 off) on the dequantized input and
+    weights."""
     return apply_int8_layers(specs, qparams, out_scales, x_norm,
                              skip=skip)[0]
 
@@ -253,7 +259,7 @@ def apply_int8_layers(specs, qparams, out_scales: Dict[int, float], x_norm,
             quantized = ("w_q" in p and cur_s is not None
                          and i not in skip)
             with L.exact_f32_convs(x.is_cuda and not quantized):
-                cur, cur_s = _conv_int8(spec, i, p, cur, cur_s, s_out,
+                cur, cur_s = _conv_int8(spec, p, cur, cur_s, s_out,
                                         quantized)
         elif isinstance(spec, S.MaxPool):
             cur = L.max_pool(cur, spec.size, spec.stride)

@@ -15,8 +15,10 @@ its mirror through one doubled backbone, the activated head outputs
 averaged (models/heads.py), decoded without activating again, then NMS.
 Rolling-average smoothing (``Detector.detect_batch_smoothed``): each
 frame's activated head outputs averaged with the previous frames', the
-tails carried on the device between calls. PyTorch runs it eagerly; there
-is no jit. On the card no path reads anything back to the host.
+tails carried on the device between calls. ``Classifier``: uint8 images ->
+softmax probabilities, with the evaluation modes' preprocessing on the
+device. PyTorch runs it eagerly; there is no jit. On the card no path
+reads anything back to the host.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ from yolo_tensorflow_tpu_torch.post import nms as NMS
 
 # Detector options of the TPU package that this port does not have yet, and
 # the ROADMAP.md item that brings each
-_NOT_PORTED = {"mesh": "eval, serving, export and the CLI",
-               "donate": "eval, serving, export and the CLI"}
+_NOT_PORTED = {"mesh": "Queue 1 item 10, data parallel",
+               "donate": "Queue 1 item 12, the serving surface"}
 
 
 def normalize_images(images_uint8, cfg: C.ModelConfig, dtype=torch.float32):
@@ -313,6 +315,9 @@ class Detector:
     (``ops.quant.quantize_params``): its quantized convs run the int8
     kernel with the dequantize epilogue in the compute dtype.
 
+    ``letterbox=True`` alone: ``detect`` letterboxes on the host
+    (``data.augment.letterbox``, with cv2) and un-maps the boxes there
+    (``unletterbox_boxes``), as the TPU package does.
     ``letterbox=True, fused=True``: the fused letterbox path.
     ``detect_batch_fused`` takes uint8 canvases of any size with each
     image's [h, w], ``detect`` copies its image into a canvas; the
@@ -340,13 +345,8 @@ class Detector:
             if overrides.pop(key, None):
                 raise NotImplementedError(
                     f"Detector({key}=...) is not ported yet (ROADMAP.md, "
-                    f"{item!r})")
-        if letterbox and not fused:
-            raise NotImplementedError(
-                "Detector(letterbox=True) without fused=True is the host "
-                "letterbox (data/augment.letterbox, which needs cv2) and is "
-                "not ported yet (ROADMAP.md, 'the fused letterbox'); "
-                "Detector(letterbox=True, fused=True) is")
+                    f"{item})")
+        self.letterbox = letterbox
         self.fused = letterbox and fused
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -428,26 +428,36 @@ class Detector:
 
     def detect(self, image: np.ndarray):
         """image: HWC uint8 (RGB), any size. Stretch-resized to the input
-        on the host (with cv2); on the fused path letterboxed on the device
-        instead, without cv2. Returns a list of dicts with pixel-space boxes
-        in the original image."""
+        on the host (with cv2), or letterboxed there with ``letterbox=True``;
+        on the fused path letterboxed on the device instead, without cv2.
+        Returns a list of dicts with pixel-space boxes in the original
+        image."""
         h, w = image.shape[:2]
+        s = self.cfg.input_size
         if self.fused:
-            side = canvas_side(h, w, self.cfg.input_size)
+            side = canvas_side(h, w, s)
             canvas = np.zeros((1, side, side, 3), np.uint8)
             canvas[0, :h, :w] = image
             dets = NMS.fetch_detections(self.detect_batch_fused(
                 canvas, np.asarray([[h, w]], np.int32)))
-            scale = np.ones(4, np.float32)
+            boxes_px = dets.boxes[0, :int(dets.num[0])]
+        elif self.letterbox:
+            from yolo_tensorflow_tpu_torch.data.augment import (
+                letterbox, unletterbox_boxes)
+            resized, scale, px, py = letterbox(image, s)
+            dets = NMS.fetch_detections(self.detect_batch(resized[None]))
+            boxes_px = dets.boxes[0, :int(dets.num[0])]
+            if len(boxes_px):
+                boxes_px = unletterbox_boxes(boxes_px, w, h, s, scale, px,
+                                             py)
         else:
             import cv2
-            s = self.cfg.input_size
             resized = cv2.resize(image, (s, s),
                                  interpolation=cv2.INTER_LINEAR)
             dets = NMS.fetch_detections(self.detect_batch(resized[None]))
-            scale = np.asarray([w, h, w, h], np.float32)
+            boxes_px = (dets.boxes[0, :int(dets.num[0])]
+                        * np.asarray([w, h, w, h], np.float32))
         n = int(dets.num[0])
-        boxes_px = dets.boxes[0, :n] * scale
         out = []
         for i in range(n):
             x0, y0, x1, y1 = boxes_px[i]
@@ -458,3 +468,192 @@ class Detector:
                 "box": (float(x0), float(y0), float(x1), float(y1)),
             })
         return out
+
+    def detect_from_file(self, path: str):
+        """``detect`` of the image file at ``path`` (eval.batched.read_rgb,
+        with cv2)."""
+        from yolo_tensorflow_tpu_torch.eval.batched import read_rgb
+        return self.detect(read_rgb(path))
+
+
+class Classifier:
+    """Image classification (head 0 models), examples/classifier.c's predict
+    path: uint8 images -> softmax probabilities, (B, classes) float32 on
+    ``device``.
+
+    ``params`` (the port's folded layout) or ``weights_path``;
+    ``compute_dtype`` None is float32 parity (TF32 off), ``torch.bfloat16``
+    serving; int8 ``params`` (``ops.quant.quantize_params``) run their convs
+    through the int8 kernel, as in ``Detector``. ``specs`` for a model
+    outside the registry.
+
+    The evaluation modes of eval/classify.py preprocess on the device from
+    uint8 canvases: ``classify_batch_center_crop`` (a square crop through
+    ``letterbox_device_batch``), ``classify_batch_resize`` (darknet's
+    stretch, ``ops.preprocess.resize_device_batch``),
+    ``classify_batch_10crop`` and ``classify_group_fullconv``. The TPU
+    package keeps an LRU cache of jitted functions per canvas and output
+    shape; eager PyTorch compiles nothing, so there is none here. Canvases
+    still come in ``canvas_side`` buckets, and eval/classify.snap_shape_32
+    still bounds the shapes of the fully convolutional modes, so that the
+    same shapes run as in the TPU package."""
+
+    def __init__(self, model, weights_path: Optional[str] = None, *,
+                 params=None, compute_dtype=None, specs=None, device="cuda",
+                 **overrides):
+        self.cfg = (model if isinstance(model, C.ModelConfig)
+                    else C.get_config(model, **overrides))
+        if self.cfg.head != 0:
+            raise ValueError(f"{model} is not a classifier config")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Classifier(device='cuda') needs a CUDA "
+                               "device and torch.cuda.is_available() is "
+                               "false")
+        self.specs = C.build_specs(self.cfg) if specs is None else specs
+        if params is None:
+            if weights_path is None:
+                raise ValueError("need weights_path or params")
+            params, _ = W.load_darknet_weights(
+                self.specs, self.cfg.input_size, weights_path)
+        self.network = engine.Network(self.specs, params, device=self.device,
+                                      dtype=compute_dtype or torch.float32)
+
+    def _probs(self, x):
+        """Normalized input (B, 3, H, W) in channels-last memory -> probs."""
+        ((probs, _),) = self.network(x.to(self.network.dtype))
+        return probs
+
+    def classify_batch(self, images_uint8):
+        """uint8 (B, S, S, 3) images at the input size (numpy or tensor) ->
+        probs (B, classes) on the device."""
+        x = torch.as_tensor(images_uint8).to(self.device)
+        with torch.inference_mode():
+            return self._probs(normalize_images(x, self.cfg,
+                                                self.network.dtype))
+
+    def classify(self, image: np.ndarray, top_k: int = 5):
+        """One HWC uint8 image of any size, stretch-resized on the host
+        (with cv2) -> the ``top_k`` classes as dicts."""
+        import cv2
+        s = self.cfg.input_size
+        resized = cv2.resize(image, (s, s), interpolation=cv2.INTER_LINEAR)
+        probs = self.classify_batch(resized[None])[0].float().cpu().numpy()
+        idx = np.argsort(-probs)[:top_k]
+        return [{"class_id": int(i), "class": self.cfg.classes[int(i)],
+                 "prob": float(probs[i])} for i in idx]
+
+    def classify_batch_center_crop(self, images):
+        """validate_classifier_single's preprocessing (center_crop_image,
+        src/image.c): the square min-side centre crop, a host slice, then
+        darknet's bilinear resize to the input size on the device: a square
+        image letterboxed to S x S is resize_image(c, S, S) with no pad.
+        Canvas sides come in ``canvas_side`` buckets. Returns probs (B,
+        classes) on the device."""
+        ms = [min(im.shape[0], im.shape[1]) for im in images]
+        side = canvas_side(max(ms))
+        canvas = np.zeros((len(images), side, side, 3), np.uint8)
+        sizes = np.zeros((len(images), 2), np.int32)
+        for i, im in enumerate(images):
+            h, w = im.shape[:2]
+            m = ms[i]
+            # crop_image's offsets (im.w - m) / 2, (im.h - m) / 2
+            y0, x0 = (h - m) // 2, (w - m) // 2
+            canvas[i, :m, :m] = im[y0:y0 + m, x0:x0 + m]
+            sizes[i] = (m, m)
+        rescale, offset = normalization_fold(self.cfg)
+        with torch.inference_mode():
+            x = P.letterbox_device_batch(
+                torch.as_tensor(canvas).to(self.device),
+                torch.as_tensor(sizes).to(self.device), self.cfg.input_size,
+                rescale=rescale, offset=offset)
+            return self._probs(x)
+
+    def _pack_canvases(self, images):
+        """uint8 canvases (B, side, side, 3) in a ``canvas_side`` bucket and
+        sizes (B, 2) [h, w], on the device."""
+        side = canvas_side(*[max(im.shape[0], im.shape[1])
+                             for im in images])
+        canvas = np.zeros((len(images), side, side, 3), np.uint8)
+        sizes = np.zeros((len(images), 2), np.int32)
+        for i, im in enumerate(images):
+            h, w = im.shape[:2]
+            canvas[i, :h, :w] = im
+            sizes[i] = (h, w)
+        return (torch.as_tensor(canvas).to(self.device),
+                torch.as_tensor(sizes).to(self.device))
+
+    def _resize_forward(self, images, out_hw, views: str = "plain"):
+        """darknet's stretch resize of every image to ``out_hw`` on the
+        device, then the forward. ``views``: 'plain' -> (B, classes);
+        'flip' -> the images and their mirror as one 2B batch, probs summed
+        (validate_classifier_multi, examples/classifier.c:462-466);
+        '10crop' -> ``out_hw`` is the (S + 32) base, ten S crops (four
+        corners and the centre, then the same on the mirror) as one 10B
+        batch, probs summed (validate_classifier_10:252-272)."""
+        canvas, sizes = self._pack_canvases(images)
+        rescale, offset = normalization_fold(self.cfg)
+        S = self.cfg.input_size
+        with torch.inference_mode():
+            x = P.resize_device_batch(canvas, sizes, *out_hw,
+                                      rescale=rescale, offset=offset)
+            if views == "flip":
+                x = torch.cat([x, torch.flip(x, dims=[3])])
+            elif views == "10crop":
+                # crop_image clamps reads past the edge to it
+                # (src/image.c:857-875); the offsets reach 32 past the top
+                # and left only, so one edge-replicating pad there makes
+                # every crop a static slice
+                offs = [(-32, -32), (32, -32), (0, 0), (-32, 32), (32, 32)]
+                xs = []
+                for base in (x, torch.flip(x, dims=[3])):
+                    padded = torch.nn.functional.pad(base, (32, 0, 32, 0),
+                                                     mode="replicate")
+                    xs += [padded[:, :, 32 + dy:32 + dy + S,
+                                  32 + dx:32 + dx + S] for dx, dy in offs]
+                x = torch.cat(xs)
+            probs = self._probs(x.contiguous(
+                memory_format=torch.channels_last))
+            if views == "plain":
+                return probs
+            n = 2 if views == "flip" else 10
+            return probs.reshape(n, len(images), -1).sum(0)
+
+    def classify_batch_resize(self, images):
+        """validate_classifier_crop's preprocessing: the plain stretch to
+        the input size (load_image_color(path, w, h), src/data.c:1122).
+        Returns probs (B, classes) on the device."""
+        S = self.cfg.input_size
+        return self._resize_forward(images, (S, S))
+
+    def classify_batch_10crop(self, images):
+        """validate_classifier_10 (examples/classifier.c:234-305): stretch
+        to (S + 32, S + 32), ten S crops, probs summed. Returns (B,
+        classes) on the device."""
+        S = self.cfg.input_size
+        return self._resize_forward(images, (S + 32, S + 32), "10crop")
+
+    @staticmethod
+    def _resize_min_shape(h: int, w: int, size: int):
+        """resize_min's integer geometry (src/image.c:997): the shorter
+        side -> size."""
+        if w < h:
+            return (h * size) // w, size
+        return size, (w * size) // h
+
+    @staticmethod
+    def _resize_max_shape(h: int, w: int, size: int):
+        """resize_max's integer geometry (src/image.c:981): the longer side
+        -> size."""
+        if w > h:
+            return (h * size) // w, size
+        return size, (w * size) // h
+
+    def classify_group_fullconv(self, images, out_hw, flip: bool = False):
+        """One fully convolutional forward at ``out_hw``, the
+        resize_network(net, r.w, r.h) step of validate_classifier_full and
+        _multi (examples/classifier.c:340,460): the global average pool
+        makes the net take any shape. ``flip``: the mirror too, probs
+        summed. Returns (B, classes) on the device."""
+        return self._resize_forward(images, tuple(out_hw),
+                                    "flip" if flip else "plain")

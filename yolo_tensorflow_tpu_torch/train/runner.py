@@ -16,10 +16,17 @@ cv2 decode; on a host without cv2 it is how images get in, and the
 training pixels then go through the native kernel (YOLO_NATIVE_LOADER=1,
 ``data/native.py``).
 
+``val_list`` with ``eval_every``: every eval_every steps the state is
+folded and scored on the first 200 validation samples, read through
+``read_fn`` as the training images are: mAP@0.5 for a detector
+(``evaluate_model``, the stretch Detector, which needs cv2), top-1 for a
+classifier (``evaluate_classifier``, mode 'crop': the resize runs on the
+device). One Detector or Classifier serves every round, its network's
+parameters swapped.
+
 Raise NotImplementedError before any step: more than one data or spatial
-shard or a distributed coordinator (ROADMAP.md, Queue 1 item 10),
-in-training evaluation (val_list with eval_every, item 11), QAT (item 13)
-and rematerialization (remat_every, item 9).
+shard or a distributed coordinator (ROADMAP.md, Queue 1 item 10), QAT
+(item 13) and rematerialization (remat_every, item 9).
 """
 
 from __future__ import annotations
@@ -49,6 +56,91 @@ def aug_from_cfg(net: dict, h0: dict, head: int) -> dict:
     )
 
 
+def _folded(cfg, state) -> dict:
+    """The train state's parameters folded into the serving form. A QAT
+    state would score its int8 export, which is not ported."""
+    from yolo_tensorflow_tpu_torch.io.weights import fold_params
+    if getattr(state, "qat_scales", None):
+        raise NotImplementedError("evaluating a QAT state (its int8 export) "
+                                  "is not ported (ROADMAP.md, Queue 1 item "
+                                  "13: ops/qat.py)")
+    return fold_params(state.params, state.batch_stats, cfg.bn_eps)
+
+
+def _swap_params(owner, folded):
+    """Give a cached Detector or Classifier the newly folded parameters: a
+    new network of its specs, device and dtype (the TPU package swaps the
+    params argument of its jitted functions)."""
+    from yolo_tensorflow_tpu_torch.models import engine
+    owner.network = engine.Network(owner.specs, folded, device=owner.device,
+                                   dtype=owner.network.dtype)
+
+
+def evaluate_model(cfg, specs, state, samples, *, limit=0, conf=0.25,
+                   detector_cache=None, batch_size=16, read_fn=None):
+    """In-training mAP (validate_detector, examples/detector.c:364, folded
+    into the loop) through the batched evaluation pipeline
+    (eval/batched.evaluate_samples) and eval.map.evaluate_detections.
+    ``detector_cache``: a list that keeps one Detector across rounds (the
+    first call appends it, later calls load the new parameters into it).
+    ``read_fn`` reads the images (default eval.batched.read_rgb)."""
+    from yolo_tensorflow_tpu_torch.eval.batched import (evaluate_samples,
+                                                        read_rgb)
+    from yolo_tensorflow_tpu_torch.eval.map import evaluate_detections
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+
+    folded = _folded(cfg, state)
+    if detector_cache:
+        det = detector_cache[0]
+        _swap_params(det, folded)
+    else:
+        det = Detector(cfg, params=folded, specs=specs,
+                       device=_device_of(state.network),
+                       conf_threshold=conf, max_detections=50)
+        if detector_cache is not None:
+            detector_cache.append(det)
+    dets, gts, _, _ = evaluate_samples(det, samples, limit=limit,
+                                       batch_size=batch_size,
+                                       read_fn=read_fn or read_rgb)
+    return evaluate_detections(dets, gts, cfg.num_classes)
+
+
+def evaluate_classifier(cfg, state, samples, *, limit=0, specs=None,
+                        classifier_cache=None, batch_size=32, read_fn=None):
+    """Top-1 accuracy of the in-training classifier on data.datasets
+    samples (the label in ``boxes[0, 4]``): eval/classify.
+    validate_classifier in mode 'crop' (validate_classifier_crop's stretch,
+    examples/classifier.c:170, on the device). ``classifier_cache`` as
+    ``evaluate_model``'s ``detector_cache``."""
+    from yolo_tensorflow_tpu_torch import config as C
+    from yolo_tensorflow_tpu_torch.eval.batched import read_rgb
+    from yolo_tensorflow_tpu_torch.eval.classify import validate_classifier
+    from yolo_tensorflow_tpu_torch.pipeline import Classifier
+
+    if specs is None:
+        specs = C.build_specs(cfg)
+    folded = _folded(cfg, state)
+    if classifier_cache:
+        clf = classifier_cache[0]
+        _swap_params(clf, folded)
+    else:
+        clf = Classifier(cfg, params=folded, specs=specs,
+                         device=_device_of(state.network))
+        if classifier_cache is not None:
+            classifier_cache.append(clf)
+    if limit:
+        samples = samples[:limit]
+    pairs = [(smp.image_path, int(smp.boxes[0, 4])) for smp in samples]
+    res = validate_classifier(clf, pairs, top_k=1, mode="crop",
+                              batch_size=batch_size,
+                              read_fn=read_fn or read_rgb)
+    return res["top1"]
+
+
+def _device_of(network) -> torch.device:
+    return next(network.parameters()).device
+
+
 def _not_ported(args):
     """Raise for an option the port does not run, naming its item."""
     if (getattr(args, "num_data", None) or 1) > 1 \
@@ -58,10 +150,6 @@ def _not_ported(args):
             "data or spatial parallel and multi-host training are not "
             "ported (ROADMAP.md, Queue 1 item 10): run_training trains on "
             "one card")
-    if getattr(args, "val_list", None) and getattr(args, "eval_every", 0):
-        raise NotImplementedError(
-            "in-training evaluation (val_list with eval_every) is not "
-            "ported (ROADMAP.md, Queue 1 item 11)")
     if getattr(args, "qat", False):
         raise NotImplementedError("QAT training is not ported (ROADMAP.md, "
                                   "Queue 1 item 13: ops/qat.py)")
@@ -161,12 +249,18 @@ def run_training(args, *, read_fn=None):
                            "torch.cuda.is_available() is false")
     cfg, specs, net_opts, loss_kw, aug_kw, cfg_multiscale = _model(args)
     specs = C.build_specs(cfg) if specs is None else specs
+    val_list = getattr(args, "val_list", None)
     if cfg.head == 0:
         # labels from class-name substring match on the path (fill_truth)
         samples = load_classifier_list(args.list, cfg.classes)
+        val_samples = (load_classifier_list(val_list, cfg.classes)
+                       if val_list else None)
     else:
         samples = load_darknet_list(args.list)
+        val_samples = load_darknet_list(val_list) if val_list else None
     print(f"{len(samples)} training samples")
+    eval_every = getattr(args, "eval_every", 0) or 0
+    eval_cache = []     # the one Detector or Classifier of every round
 
     # CLI flags override the cfg's [net] options, which override the
     # registry defaults (get_current_rate, src/network.c:90)
@@ -266,6 +360,20 @@ def run_training(args, *, read_fn=None):
             if step_i % args.save_every == 0:
                 path = ckpt.save_train_state(state, args.ckpt_dir, step_i)
                 print(f"saved {path}")
+            if val_samples and eval_every and step_i % eval_every == 0:
+                if cfg.head == 0:
+                    acc = evaluate_classifier(
+                        cfg, state, val_samples, limit=200, specs=specs,
+                        classifier_cache=eval_cache, read_fn=read_fn)
+                    print(f"step {step_i}: val top-1 = {acc:.4f}",
+                          flush=True)
+                else:
+                    m = evaluate_model(cfg, specs, state, val_samples,
+                                       limit=200, detector_cache=eval_cache,
+                                       read_fn=read_fn)
+                    print(f"step {step_i}: val mAP@0.5 = {m['map']:.4f} "
+                          f"({m['num_classes_evaluated']} classes)",
+                          flush=True)
             if step_i >= total_steps:
                 break
     ckpt.save_train_state(state, args.ckpt_dir, step_i)
