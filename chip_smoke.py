@@ -161,6 +161,34 @@ failure is caught):
  26. run_training eval: darknet19-256 with val_list and eval_every
              through read_fn: each round's top-1, conv_bnstat launched for
              every fused conv of every step.
+ 27. export: what the yolo_torch operators cost (bf16 and int8 bf16
+             detect_batch at batch 64, phases 5 and 7, and at batch 8, the
+             server's, through the operators and with their CUDA
+             implementations called directly, in turns); then the CLI's
+             convert and export (python3 -m yolo_tensorflow_tpu_torch, two
+             processes at once) of the bf16 fused letterbox Detector (batch
+             8, canvas 832) and the int8 bf16 one (batch 8); each artifact
+             loaded with LoadedArtifact: all five outputs equal to the
+             Detector's bit for bit, decode 1, NMS 1 and int8 conv 72 (int8)
+             launches a call with no host sync, and its call time beside
+             the Detector's;
+ 28. server: serve_http on 127.0.0.1 (batch 8, queue 64, .npy bodies)
+             over 16 seeded images of 200-800 px. f32 fused Detector (TF32
+             off): 16 clients post every image, each response with
+             Detector.detect's classes for the image, boxes within
+             FUSED_TOL. Then the bf16 fused Detector and the int8 bf16
+             one: 32 client threads for 3 s, every 200 response bit for
+             bit a row the card computed for the image (and counted
+             against Detector.detect's classes: bf16 rounding moves with
+             the batch's other images); req/s, latency p50/p95, batch
+             occupancy and the card's idle share (torch.profiler trace); a
+             burst past the queue with the batcher stalled gets 503 with
+             Retry-After, a body past the cap 413, and /stats reconciles
+             with the responses;
+ 29. stream: stream_detect over 64 .npy frames of 416^2 through read_fn at
+             batch 8, f32: plain, equal to detect_batch of the same frames,
+             and smoothed (avg_frames=3), against detect_batch_smoothed
+             frame by frame; frames/s.
 Then a JSON line describing each kernel (conv3x3_bnstat: launches, ms,
 bound, plain and library ms all over one step each of yolov3 (phases 8 and
 10), yolov2-416 and darknet19-256 (phases 19 and 21)), and last the JSON
@@ -181,7 +209,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -345,6 +376,19 @@ CLS_TOL = dict(rtol=1e-4, atol=1e-6)
 CLS_SIZES = ((480, 640), (300, 200), (256, 256), (333, 500))
 RUN_CLS_IMAGES = 128     # phase 26: train and validation images
 RUN_CLS_STEPS = 4
+# Phases 27-29, the serving surface: the HTTP server's default batch, which
+# the artifacts and the stream also run at; the fused artifact's canvas (2x
+# the input); the HTTP load (client threads, seconds, a pool of seeded
+# images of mixed sizes, the queue depth and body cap); the stream's frames
+SERVE_HTTP_BATCH = 8
+EXPORT_CANVAS = 832
+HTTP_CLIENTS = 32
+HTTP_SECONDS = 3.0
+HTTP_POOL = 16
+HTTP_SIDES = (200, 800)
+HTTP_QUEUE = 64
+HTTP_BODY_CAP = 4 << 20
+STREAM_FRAMES = 64
 
 
 def require(cond, msg):
@@ -3207,6 +3251,522 @@ def run_training_eval_phase(dev, smi, tmp):
     return tops
 
 
+def operators_phase(cfg, path, qparams, dev, smi):
+    """Phase 27, first part: what the yolo_torch operators cost. bf16 and
+    int8 bf16 detect_batch at SERVE_BATCH (phases 5 and 7) and at
+    SERVE_HTTP_BATCH, with the wrappers calling the operators (the port's
+    path) and with them calling the operators' CUDA implementations
+    directly (the former ctypes path, the same kernels), in turns: op,
+    direct, direct, op."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    ops = [(K, "decode_op", K._decode_cuda), (NK, "nms_op", NK._nms_cuda),
+           (Q8, "conv_op", Q8._conv_cuda)]
+    saved = [getattr(m, name) for m, name, _ in ops]
+
+    def direct(on):
+        for (m, name, fn), op in zip(ops, saved):
+            setattr(m, name, fn if on else op)
+
+    rng = np.random.default_rng(SEED + 27)
+    x = torch.as_tensor(rng.integers(0, 256, (SERVE_BATCH, cfg.input_size,
+                                              cfg.input_size, 3),
+                                     dtype=np.uint8), device=dev)
+    torch.backends.cudnn.benchmark = True
+    for name, kw in (("bf16", dict(weights_path=path)),
+                     ("int8 bf16", dict(params=qparams))):
+        det = Detector(MODEL, device="cuda", compute_dtype=torch.bfloat16,
+                       conf_threshold=CONF, **kw)
+        for batch in (SERVE_BATCH, SERVE_HTTP_BATCH):
+            xb = x[:batch]
+            rates = {True: [], False: []}
+            try:
+                for on in (False, True, True, False):
+                    direct(on)
+                    rates[on] += serve_rate(lambda: det.detect_batch(xb),
+                                            batch)[1]
+            finally:
+                direct(False)
+            op, dr = (statistics.median(rates[k]) for k in (False, True))
+            print(f"[27 operators] {name} detect_batch B={batch}: "
+                  f"{op:.1f} img/s through the operators, {dr:.1f} img/s "
+                  f"with the kernels called directly (median of 2 x 3 x 5 "
+                  f"steps each, in turns; op/direct {op / dr:.3f}); "
+                  f"on {smi}")
+        del det
+
+
+def run_cli(args):
+    """Start ``python3 -m yolo_tensorflow_tpu_torch <args>`` from the
+    repository's root; returns the Popen."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "yolo_tensorflow_tpu_torch", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def wait_cli(label, proc, timeout=600):
+    out, _ = proc.communicate(timeout=timeout)
+    require(proc.returncode == 0, f"{label}: the CLI exited "
+            f"{proc.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def export_phase(cfg, path, qparams, n_int8, dev, smi, tmp):
+    """Phase 27: the CLI's convert, then its export of the bf16 fused
+    letterbox Detector (batch SERVE_HTTP_BATCH, canvas EXPORT_CANVAS) and of
+    the int8 bf16 Detector (batch SERVE_HTTP_BATCH, the input size), two
+    processes at once; each artifact loaded with LoadedArtifact, its five
+    outputs equal to the Detector's on the same inputs, its kernels
+    launched once per call (the int8 conv n_int8 times), no host sync, and
+    its call time beside the Detector's."""
+    from yolo_tensorflow_tpu_torch.export import LoadedArtifact
+    from yolo_tensorflow_tpu_torch.io.checkpoint import save_params_npz
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    npz, qnpz = (os.path.join(tmp, f"{n}.npz") for n in ("float", "int8"))
+    art, qart = (os.path.join(tmp, f"{n}.ytt") for n in ("float", "int8"))
+    save_params_npz(qparams, qnpz)
+    t0 = time.perf_counter()
+    common = ["--model", MODEL, "--bf16", "--batch", str(SERVE_HTTP_BATCH),
+              "--conf-threshold", str(CONF), "--device", "cuda"]
+    qproc = run_cli(["export", "--weights", qnpz, "--out", qart, *common])
+    wait_cli("27 convert", run_cli(["convert", "--model", MODEL,
+                                    "--weights", path, "--out", npz]))
+    fproc = run_cli(["export", "--weights", npz, "--out", art, "--letterbox",
+                     "--fused-letterbox", "--canvas-size",
+                     str(EXPORT_CANVAS), *common])
+    outs = [wait_cli("27 export", p) for p in (fproc, qproc)]
+    print(f"[27 export] CLI convert, then export of the fused bf16 and the "
+          f"int8 bf16 yolov3-416 (two processes at once): "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{[o.strip().splitlines()[-1] for o in outs]}; "
+          f"{os.path.getsize(art) / 2**20:.1f} and "
+          f"{os.path.getsize(qart) / 2**20:.1f} MiB")
+
+    torch.backends.cudnn.benchmark = True
+    rng = np.random.default_rng(SEED + 27)
+    sizes = [tuple(int(v) for v in rng.integers(*HTTP_SIDES, 2))
+             for _ in range(SERVE_HTTP_BATCH)]
+    canvas, sz = fused_canvases(rng, EXPORT_CANVAS, sizes)
+    canvas, sz = (torch.as_tensor(v, device=dev) for v in (canvas, sz))
+    x = torch.as_tensor(rng.integers(0, 256, (SERVE_HTTP_BATCH,
+                                              cfg.input_size,
+                                              cfg.input_size, 3),
+                                     dtype=np.uint8), device=dev)
+    cases = (("fused bf16", art, Detector(
+                  MODEL, path, device="cuda", compute_dtype=torch.bfloat16,
+                  conf_threshold=CONF, letterbox=True, fused=True),
+              (canvas, sz), dict(decode=1, nms=1, int8=0)),
+             ("int8 bf16", qart, Detector(
+                  MODEL, params=qparams, device="cuda",
+                  compute_dtype=torch.bfloat16, conf_threshold=CONF),
+              (x,), dict(decode=1, nms=1, int8=n_int8)))
+    for name, file, det, inputs, want_counts in cases:
+        t0 = time.perf_counter()
+        loaded = LoadedArtifact(file)
+        load_s = time.perf_counter() - t0
+        require(loaded.manifest["framework"] == "yolo_tensorflow_tpu_torch"
+                and loaded.device.type == dev.type,
+                f"27 {name}: manifest {loaded.manifest}")
+        run = ((lambda: det.detect_batch_fused(*inputs)) if det.fused
+               else (lambda: det.detect_batch(*inputs)))
+        run()
+        loaded(*inputs)                          # warm-up, outside counts
+        want = run()
+        got = counted_forward(f"27 artifact {name}",
+                              lambda: loaded(*inputs), **want_counts)
+        for key, g, w in zip(loaded.manifest["outputs"], got.values(),
+                             want):
+            require(torch.equal(g, w), f"27 {name}: artifact {key} differs "
+                    "from the Detector's")
+        require(int(want.num.sum()) > 0, f"27 {name}: no detections")
+        det_ms = wall_ms(run, 10)
+        art_ms = wall_ms(lambda: loaded(*inputs), 10)
+        print(f"[27 export {name}] {os.path.basename(file)} loaded in "
+              f"{load_s:.2f} s; B={SERVE_HTTP_BATCH}: all five outputs "
+              f"equal to the Detector's bit for bit ({int(want.num.sum())} "
+              f"detections); one call launched {want_counts}; call "
+              f"{art_ms:.2f} ms, the Detector's {det_ms:.2f} ms (host "
+              f"time, 10 calls); on {smi}")
+        del det, loaded
+
+
+def result_rows(det, host, i):
+    """Row i of numpy Detections as BatchingDetector's JSON gives it (no
+    host downscale: every image here fits the largest canvas)."""
+    return json.dumps([{
+        "class_id": int(host.classes[i, j]),
+        "class": det.cfg.classes[int(host.classes[i, j])],
+        "score": float(host.scores[i, j]),
+        "box": [float(v) for v in host.boxes[i, j]]}
+        for j in range(int(host.num[i]))])
+
+
+class _Recorder:
+    """A fused Detector for phase 28's server: its device call waits while
+    ``open`` is clear (to stall the batcher and fill the queue), and it
+    keeps, per image size [h, w], every result the card computed for a
+    row of that size, formatted as the server formats it."""
+
+    fused = True
+
+    def __init__(self, det):
+        from yolo_tensorflow_tpu_torch.post import nms as NMS
+        self.det, self.cfg, self._fetch = det, det.cfg, NMS.fetch_detections
+        self.open = threading.Event()
+        self.open.set()
+        self.rows = collections.defaultdict(set)
+
+    def detect_batch_fused(self, canvas, sizes):
+        if not self.open.wait(120):
+            raise RuntimeError("28: the gate never opened")
+        dets = self.det.detect_batch_fused(canvas, sizes)
+        host = self._fetch(dets)
+        for i, (h, w) in enumerate(np.asarray(sizes).tolist()):
+            self.rows[(h, w)].add(result_rows(self.det, host, i))
+        return dets
+
+
+def http_post(url, body, timeout=120):
+    """(status, JSON body, Retry-After) of one POST."""
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), None
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), e.headers.get(
+            "Retry-After")
+
+
+def http_get(url):
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def npy_body(img):
+    import io
+    buf = io.BytesIO()
+    np.save(buf, img)
+    return buf.getvalue()
+
+
+def http_pool(seed):
+    """HTTP_POOL seeded RGB images of distinct sizes in HTTP_SIDES, and
+    their .npy request bodies."""
+    rng = np.random.default_rng(seed)
+    sizes = set()
+    while len(sizes) < HTTP_POOL:
+        sizes.add(tuple(int(v) for v in rng.integers(*HTTP_SIDES, 2)))
+    pool = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in sorted(sizes)]
+    return pool, [npy_body(im) for im in pool]
+
+
+def start_server(det, **kw):
+    from yolo_tensorflow_tpu_torch.cli import decode_npy
+    from yolo_tensorflow_tpu_torch.server import serve_http
+    ready = threading.Event()
+    httpd, batcher = serve_http(
+        det, host="127.0.0.1", port=0, batch_size=SERVE_HTTP_BATCH,
+        queue_depth=HTTP_QUEUE, max_body_bytes=HTTP_BODY_CAP,
+        model_name=MODEL, ready_event=ready, decode_fn=decode_npy, **kw)
+    require(ready.wait(30), "28: the server did not come up")
+    return httpd, batcher, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def serve_run(label, det, tmp, smi):
+    """One phase-28 load run: serve_http on 127.0.0.1 with ``det``,
+    HTTP_CLIENTS threads posting the pool's images for HTTP_SECONDS (a
+    torch.profiler trace of the window for the card's idle share); every
+    200 response equal to a result the card computed for a row of that
+    image's size (the server's slicing and formatting, bit for bit), and
+    counted against ``Detector.detect`` of the image alone; then a burst
+    past the queue with the batcher stalled (503 + Retry-After), a body
+    past the cap (413), and /stats reconciled with the responses."""
+    import http.client
+    pool, bodies = http_pool(SEED + 28)
+    alone = [[d["class_id"] for d in det.detect(im)] for im in pool]
+    rec = _Recorder(det)
+    httpd, batcher, base = start_server(rec)
+    codes = collections.Counter()
+    lock = threading.Lock()
+    same_classes, failures = [0], []      # a client thread cannot exit
+
+    def check(i, status, out):
+        with lock:
+            codes[status] += 1
+        if status != 200:
+            return
+        got = out["detections"]
+        h, w = pool[i].shape[:2]
+        with lock:
+            if json.dumps(got) not in rec.rows[(h, w)]:
+                failures.append(f"image {i}: {got}")
+            same_classes[0] += [d["class_id"] for d in got] == alone[i]
+
+    try:
+        for i, b in enumerate(bodies):      # warm-up, each image once
+            check(i, *http_post(base + "/detect", b)[:2])
+        lat, stop = [], [0.0]
+
+        def client(t):
+            k = 0
+            while time.perf_counter() < stop[0]:
+                i = (t * 5 + k) % HTTP_POOL
+                t0 = time.perf_counter()
+                status, out, _ = http_post(base + "/detect", bodies[i])
+                dt = time.perf_counter() - t0
+                check(i, status, out)
+                if status == 200:
+                    with lock:
+                        lat.append(dt)
+                else:
+                    time.sleep(0.05)        # an honest client backs off
+                k += 1
+
+        threads = [threading.Thread(target=client, args=(t,), daemon=True)
+                   for t in range(HTTP_CLIENTS)]
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        prof.start()
+        t0 = time.perf_counter()
+        stop[0] = t0 + HTTP_SECONDS
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.stop()
+        require(not any(t.is_alive() for t in threads),
+                f"{label}: a client hung")
+        busy, n_spans = device_busy(prof, os.path.join(
+            tmp, label.replace(" ", "_") + ".json"))
+        n_load = len(lat)
+        snap = http_get(base + "/stats")
+        lat.sort()
+
+        # the burst: the batcher stalled, HTTP_QUEUE + batch + 16 posts
+        rec.open.clear()
+        burst, retry = [], []
+
+        def post(i):
+            status, out, ra = http_post(base + "/detect", bodies[i])
+            check(i, status, out)
+            with lock:
+                burst.append(status)
+                if status == 503:
+                    retry.append(ra)
+
+        n_burst = HTTP_QUEUE + SERVE_HTTP_BATCH + 16
+        threads = [threading.Thread(target=post, args=(j % HTTP_POOL,),
+                                    daemon=True) for j in range(n_burst)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 60
+        while burst.count(503) < 16 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        shed_while_stalled = burst.count(503)
+        rec.open.set()
+        for t in threads:
+            t.join(timeout=120)
+        require(not any(t.is_alive() for t in threads),
+                f"{label}: a burst request hung")
+        require(shed_while_stalled >= 16 and burst.count(503) >= 16
+                and all(r == "1" for r in retry),
+                f"{label}: burst of {n_burst}: {collections.Counter(burst)}"
+                f", Retry-After {set(retry)}")
+
+        # a body past the cap: headers only, the server answers first
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          httpd.server_address[1],
+                                          timeout=30)
+        conn.putrequest("POST", "/detect")
+        conn.putheader("Content-Length", str(HTTP_BODY_CAP + 1))
+        conn.endheaders()
+        big = conn.getresponse().status
+        conn.close()
+        require(big == 413, f"{label}: a body past the cap got {big}")
+        st = http_get(base + "/stats")
+        require(st["requests"] == st["images"] == codes[200]
+                and st["errors"] == 0 and st["rejected"] == codes[503],
+                f"{label}: /stats {st} against responses {dict(codes)}")
+        require(not failures, f"{label}: {len(failures)} responses are no "
+                f"row the card computed, first {failures[:1]}")
+    finally:
+        rec.open.set()
+        httpd.shutdown()
+        batcher.close()
+    p = [lat[min(int(len(lat) * q), len(lat) - 1)] * 1e3 for q in (0.5,
+                                                                    0.95)]
+    print(f"[{label}] serve_http B={SERVE_HTTP_BATCH}, queue {HTTP_QUEUE}, "
+          f"{HTTP_CLIENTS} clients x {HTTP_SECONDS:.0f} s of .npy posts "
+          f"({HTTP_POOL} images, {HTTP_SIDES[0]}-{HTTP_SIDES[1]} px): "
+          f"{n_load / wall:.1f} req/s ({n_load} in {wall:.2f} s), client "
+          f"latency p50 {p[0]:.1f} ms p95 {p[1]:.1f} ms, server p50 "
+          f"{snap.get('latency_ms_p50')} ms p95 "
+          f"{snap.get('latency_ms_p95')} ms, mean batch occupancy "
+          f"{snap['mean_batch_occupancy']}; card busy (union of {n_spans} "
+          f"intervals) {busy:.3f} s of {wall:.3f} s, idle share "
+          f"{1 - busy / wall:.3f}; every one of {codes[200]} 200 responses "
+          f"a row the card computed for the image, bit for bit; "
+          f"{same_classes[0]} with Detector.detect's classes for the image "
+          f"alone (bf16 rounding moves with the batch's other images); "
+          f"burst of {n_burst} with the batcher stalled: "
+          f"{dict(collections.Counter(burst))}, Retry-After 1; 413 past "
+          f"{HTTP_BODY_CAP} bytes; /stats requests = images = "
+          f"{st['requests']} = 200 responses, rejected {st['rejected']}; "
+          f"on {smi}")
+
+
+def serve_parity(label, det, smi):
+    """Phase 28's correctness run, f32 (TF32 off): HTTP_POOL client
+    threads each post every pool image once, in their own order, so that
+    images share batches; every response has Detector.detect's classes for
+    the image, boxes (pixels) within FUSED_TOL and scores within
+    PARITY_TOL; /stats reconciles."""
+    pool, bodies = http_pool(SEED + 28)
+    want = [det.detect(im) for im in pool]
+    require(sum(len(w) for w in want) > 0, f"{label}: no detections")
+    httpd, batcher, base = start_server(det)
+    got, lock = [], threading.Lock()
+
+    def client(t):
+        for k in range(HTTP_POOL):
+            i = (t + 3 * k) % HTTP_POOL
+            status, out, _ = http_post(base + "/detect", bodies[i])
+            with lock:
+                got.append((i, status, out))
+
+    try:
+        threads = [threading.Thread(target=client, args=(t,), daemon=True)
+                   for t in range(HTTP_POOL)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        require(not any(t.is_alive() for t in threads),
+                f"{label}: a client hung")
+        st = http_get(base + "/stats")
+    finally:
+        httpd.shutdown()
+        batcher.close()
+    require(len(got) == HTTP_POOL ** 2 and all(s == 200 for _, s, _ in got)
+            and st["requests"] == st["images"] == len(got),
+            f"{label}: {collections.Counter(s for _, s, _ in got)}, /stats "
+            f"{st}")
+    err = 0.0
+    for i, _, out in got:
+        g, w = out["detections"], want[i]
+        require([d["class_id"] for d in g] == [d["class_id"] for d in w],
+                f"{label}: image {i}: classes {[d['class_id'] for d in g]}"
+                f", Detector.detect {[d['class_id'] for d in w]}")
+        if g:
+            gb, wb = (np.asarray([d["box"] for d in r], np.float64)
+                      for r in (g, w))
+            np.testing.assert_allclose(gb, wb, **FUSED_TOL)
+            np.testing.assert_allclose([d["score"] for d in g],
+                                       [d["score"] for d in w], **PARITY_TOL)
+            err = max(err, float(np.abs(gb - wb).max()))
+    print(f"[{label}] serve_http B={SERVE_HTTP_BATCH} f32: {len(got)} "
+          f"responses from {HTTP_POOL} clients, mean batch occupancy "
+          f"{st['mean_batch_occupancy']}; each with Detector.detect's "
+          f"classes for the image alone, max |err| of pixel boxes {err:.3g} "
+          f"(tol {FUSED_TOL}); on {smi}")
+
+
+def server_phase(path, qparams, tmp, smi):
+    """Phase 28: the HTTP server over the f32 fused Detector (correctness
+    against Detector.detect), then load runs over the bf16 fused Detector
+    and the int8 bf16 one."""
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    torch.backends.cudnn.benchmark = False
+    det = Detector(MODEL, path, device="cuda", conf_threshold=CONF,
+                   letterbox=True, fused=True)
+    serve_parity("28 server f32", det, smi)
+    del det
+    torch.backends.cudnn.benchmark = True
+    for name, kw in (("bf16", dict(weights_path=path)),
+                     ("int8 bf16", dict(params=qparams))):
+        det = Detector(MODEL, device="cuda", compute_dtype=torch.bfloat16,
+                       conf_threshold=CONF, letterbox=True, fused=True,
+                       **kw)
+        serve_run(f"28 server {name}", det, tmp, smi)
+        del det
+
+
+def stream_phase(cfg, path, tmp, smi):
+    """Phase 29: stream_detect over a directory of STREAM_FRAMES .npy
+    frames at the input size (read_fn = np.load) at batch
+    SERVE_HTTP_BATCH, f32: plain, each batch equal to detect_batch of the
+    same frames; smoothed (avg_frames = SMOOTH_AVG), against
+    detect_batch_smoothed frame by frame with the state carried."""
+    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    from yolo_tensorflow_tpu_torch.serving import stream_detect
+    rng = np.random.default_rng(SEED + 29)
+    S = cfg.input_size
+    frames = rng.integers(0, 256, (STREAM_FRAMES, S, S, 3), dtype=np.uint8)
+    root = os.path.join(tmp, "frames")
+    os.makedirs(root)
+    for i, f in enumerate(frames):
+        np.save(os.path.join(root, f"{i:04d}.npy"), f)
+    torch.backends.cudnn.benchmark = False
+    det = Detector(MODEL, path, device="cuda", conf_threshold=CONF)
+    for avg in (0, SMOOTH_AVG):
+        got = []
+        stream_detect(det, root, batch_size=SERVE_HTTP_BATCH, read_fn=np.load,
+                      avg_frames=avg,
+                      on_batch=lambda d, im: got.append((d, im.copy())))
+        n, dt, fps = stream_detect(det, root, batch_size=SERVE_HTTP_BATCH,
+                                   read_fn=np.load, avg_frames=avg)
+        require(n == STREAM_FRAMES and len(got) == STREAM_FRAMES
+                // SERVE_HTTP_BATCH, f"29 stream: {n} frames, {len(got)} "
+                "batches")
+        seen = np.concatenate([im for _, im in got])
+        require(np.array_equal(seen, frames), "29 stream: frames out of "
+                "order or altered")
+        state, err, nums = None, 0.0, 0
+        for b, (d, _) in enumerate(got):
+            for j in range(SERVE_HTTP_BATCH):
+                i = b * SERVE_HTTP_BATCH + j
+                if avg:
+                    w, state = det.detect_batch_smoothed(
+                        frames[i:i + 1], state, avg_frames=avg)
+                    w = NMS.fetch_detections(w)
+                    row = 0
+                else:
+                    if j == 0:
+                        w = NMS.fetch_detections(det.detect_batch(
+                            frames[i:i + SERVE_HTTP_BATCH]))
+                    row = j
+                for name in ("num", "classes", "valid"):
+                    require(np.array_equal(getattr(d, name)[j],
+                                           getattr(w, name)[row]),
+                            f"29 stream avg={avg}: frame {i} {name}")
+                for name in ("boxes", "scores"):
+                    g, ww = getattr(d, name)[j], getattr(w, name)[row]
+                    if avg:
+                        np.testing.assert_allclose(g, ww, **PARITY_TOL)
+                    else:
+                        require(np.array_equal(g, ww), f"29 stream: frame "
+                                f"{i} {name} differ from detect_batch")
+                    err = max(err, float(np.abs(g - ww).max()))
+                nums += int(d.num[j])
+        require(nums > 0, "29 stream: no detections")
+        mode = (f"smoothed (avg_frames={avg}), against "
+                "detect_batch_smoothed frame by frame" if avg else
+                "plain, against detect_batch of the same frames")
+        print(f"[29 stream f32] stream_detect of {n} .npy frames of {S}^2 "
+              f"through read_fn at B={SERVE_HTTP_BATCH}, {mode}: classes "
+              f"equal, max |err| {err:.3g} ({nums} detections); "
+              f"{fps:.1f} frames/s ({dt:.2f} s, reading included); on {smi}")
+    del det
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3370,7 +3930,7 @@ def main():
             specs, cfg, path, int8_shapes(
                 specs, cfg, convs - Q.head_conv_layers(specs)),
             qparams, calib, imgs, dev, int8_rate, int8_net_ms, kind, smi)
-        del qparams, calib
+        del calib
 
         # 19-22. training of the region, grid and classifier families:
         # conv_bnstat at Darknet-19's shapes, f32 parity, bf16 throughput
@@ -3401,6 +3961,14 @@ def main():
         classifier_phase(dev, kind, smi, tmp)
         torch.backends.cudnn.benchmark = False
         run_training_eval_phase(dev, smi, tmp)
+
+        # 27-29. the serving surface: the operators' cost, the torch.export
+        # artifacts through the CLI, the HTTP server, the stream
+        operators_phase(cfg, path, qparams, dev, smi)
+        export_phase(cfg, path, qparams, int8_launches, dev, smi, tmp)
+        server_phase(path, qparams, tmp, smi)
+        stream_phase(cfg, path, tmp, smi)
+        del qparams
 
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",

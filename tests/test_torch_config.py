@@ -57,7 +57,7 @@ def test_overrides_match():
 
 COPIES = ("io/cfg.py", "io/datacfg.py", "data/datasets.py",
           "data/augment.py", "post/numpy_post.py", "eval/map.py",
-          "eval/__init__.py")
+          "eval/__init__.py", "utils/drawing.py")
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -14,7 +14,11 @@ on the same seeded weights and image files.
   images through ``read_fn`` (.npy files), the others through ``read_rgb``
   (cv2), as the JAX package does.
 - The batched results equal the serial ``Detector.detect``'s, and
-  ``detect_from_file``'s, in every branch.
+  ``detect_from_file``'s, in every branch, bit for bit, with oneDNN's CPU
+  convolution off (``torch_parity.batch_invariant_conv``): on an AVX-512
+  CPU oneDNN sums an image's products in another order at batch 3 than at
+  batch 1 (from the first layer on; the boxes then differ by up to 1.1e-5
+  px), which ``test_onednn_conv_batch_dependence`` records.
 - The host letterbox ``Detector.detect`` equals the JAX Detector's.
 """
 
@@ -23,6 +27,8 @@ import os
 import cv2
 import numpy as np
 import pytest
+import torch
+import torch.nn.functional as F
 
 from yolo_tensorflow_tpu.eval import batched as JB
 from yolo_tensorflow_tpu.eval import map as JM
@@ -33,7 +39,8 @@ from yolo_tensorflow_tpu_torch.eval import map as TM
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
 from yolo_tensorflow_tpu_torch.pipeline import Detector
 
-from torch_parity import folded_params, jax_model, model
+from torch_parity import (batch_invariant_conv, folded_params, jax_model,
+                          model)
 
 SIZE = 64
 # seeded softmax scores of the region head stay low: a lower threshold
@@ -131,6 +138,11 @@ def test_evaluate_samples_matches_jax(name, branch, image_files):
 @pytest.mark.parametrize("branch", list(BRANCHES))
 def test_batched_equals_serial_detect(branch, image_files):
     det, _ = _detectors("narrow", branch)
+    with batch_invariant_conv():
+        _batched_equals_serial(det, image_files)
+
+
+def _batched_equals_serial(det, image_files):
     results, sizes = TB.detect_paths(det, image_files, batch_size=3,
                                      num_workers=2)
     assert sizes == list(IMAGE_SIZES)
@@ -143,6 +155,30 @@ def test_batched_equals_serial_detect(branch, image_files):
             np.testing.assert_array_equal(
                 np.asarray([d["box"] for d in serial]).reshape(-1, 4),
                 np.asarray([d["box"] for d in res]).reshape(-1, 4))
+
+
+def test_onednn_conv_batch_dependence():
+    """Why the batching tests turn oneDNN off: PyTorch's oneDNN CPU
+    convolution may give an image other bits at batch 4 than at batch 1
+    (measured on an AVX-512 CPU, torch 2.13, on these inputs: 2.9e-6 in
+    NCHW and 2.4e-6 in channels-last at Cin = 3, 1.9e-5 at Cin = 16; one
+    thread or ONEDNN_MAX_CPU_ISA=AVX2 leaves it), and only where oneDNN runs
+    it; with it off the convolution is batch invariant, bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(4, 3, 64, 64, generator=g)
+    w = torch.randn(8, 3, 3, 3, generator=g)
+
+    def gap():
+        full = F.conv2d(x, w, padding=1)
+        one = torch.cat([F.conv2d(x[i:i + 1], w, padding=1)
+                         for i in range(4)])
+        return float((full - one).abs().max())
+
+    default = gap()
+    with batch_invariant_conv():
+        assert gap() == 0.0
+    assert default == 0.0 or torch.backends.mkldnn.is_available()
+    assert default < 1e-5
 
 
 def test_host_letterbox_detect_matches_jax(image_files):

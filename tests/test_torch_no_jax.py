@@ -26,7 +26,8 @@ def test_port_imports_no_jax_and_no_triton():
                  "io.cfg", "io.datacfg", "io.checkpoint", "data.datasets",
                  "data.augment", "data.native", "data.loader",
                  "eval.batched", "eval.map", "eval.classify",
-                 "post.numpy_post"):
+                 "post.numpy_post", "serving", "server", "export", "cli",
+                 "__main__", "utils.drawing", "ops.kernels.library"):
         assert f"yolo_tensorflow_tpu_torch.{name}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -9,7 +9,10 @@ Detector.detect_batch_smoothed) vs the JAX package, on the CPU.
   against the JAX Detector's (num, classes and valid equal, boxes and
   scores at rtol 1e-4 / atol 1e-5: float32 conv sums in another order), and
   the final state's tails within the same tolerance.
-- The port alone: batches of 2 equal frames one at a time, and once the
+- The port alone: batches of 2 equal frames one at a time, bit for bit
+  with oneDNN's CPU convolution off (``torch_parity.batch_invariant_conv``:
+  oneDNN's conv is batch dependent on AVX-512 CPUs, see
+  tests/test_torch_eval.py), and once the
   window is full, identical frames give the unsmoothed ``detect_batch``
   (as tests/test_smoothing.py holds the JAX package).
 """
@@ -26,7 +29,8 @@ from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
 from yolo_tensorflow_tpu_torch.pipeline import (Detector, sliding_mean,
                                                 smooth_state_shapes)
 
-from torch_parity import folded_params, images, jax_model, model
+from torch_parity import (batch_invariant_conv, folded_params, images,
+                          jax_model, model)
 
 SIZE = 64
 OPTS = dict(conf_threshold=0.1, num_candidates=64, max_detections=10)
@@ -92,14 +96,15 @@ def test_detect_batch_smoothed_matches_jax(name):
 def test_batched_equals_frame_by_frame():
     det, _ = _detectors("narrow")
     frames = images(4, SIZE, seed=5)
-    state, one = None, []
-    for j in range(4):
-        d, state = det.detect_batch_smoothed(frames[j:j + 1], state)
-        one.append(d)
-    state, two = None, []
-    for j in (0, 2):
-        d, state = det.detect_batch_smoothed(frames[j:j + 2], state)
-        two += [type(d)(*(f[b:b + 1] for f in d)) for b in range(2)]
+    with batch_invariant_conv():
+        state, one = None, []
+        for j in range(4):
+            d, state = det.detect_batch_smoothed(frames[j:j + 1], state)
+            one.append(d)
+        state, two = None, []
+        for j in (0, 2):
+            d, state = det.detect_batch_smoothed(frames[j:j + 2], state)
+            two += [type(d)(*(f[b:b + 1] for f in d)) for b in range(2)]
     for a, b in zip(one, two):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 

@@ -13,11 +13,17 @@ Tolerances, each with its measured value (on the CPU):
   SGD with momentum and decay, 2 steps): cost and metrics rtol 1e-5; every
   gradient, updated parameter, momentum buffer and running statistic within
   LEAF_RTOL of each leaf's largest value plus atol 1e-6. LEAF_RTOL is 1e-4
-  for twopass. For onepass it is 1e-2: JAX's onepass gradients on XLA:CPU,
-  jitted or eager, are up to 7.6e-3 of a leaf's largest value from a
-  float64 evaluation of the same step (narrow), where the port's are within
-  1.5e-5; the port's gradients are held to that float64 evaluation at 1e-4
-  in every case. JAX's twopass step runs eagerly: jitted, XLA's CPU fusion
+  for twopass. For onepass JAX's f32 statistics are the less exact side:
+  its gradients on XLA:CPU, jitted or eager, are up to 7.6e-3 of a leaf's
+  largest value from a float64 evaluation of the same step (narrow), and
+  on yolov3-tiny on an AVX-512 CPU further than 1e-2 (0.243 against a
+  bound of 0.152), where the port's are within 1.5e-5. So the port's
+  gradients are held to that float64 evaluation at 1e-4 in every case, and
+  its onepass gradients, parameters and momentum to JAX's by a triangle
+  bound (``_onepass_bounds``): per leaf, JAX's own distance from the
+  float64 gradient plus the port's 1e-4 bound, carried through the
+  momentum and the updates. The onepass running statistics (no gradient
+  in them) stay at LEAF_RTOL 1e-2. JAX's twopass step runs eagerly: jitted, XLA's CPU fusion
   of it puts up to 1e-2 of error into early-layer gradients, where its
   eager step and the port match the float64 evaluation to 1e-5.
 - bf16 steps: cost rtol 1e-2 against JAX's bf16 step. Direction: the
@@ -59,6 +65,8 @@ from torch_parity import images, jax_model, model, to_jax
 
 LR, MOMENTUM, DECAY = 1e-3, 0.9, 5e-4
 LEAF_RTOL = {"twopass": 1e-4, "onepass": 1e-2}
+# the port's gradients against their float64 evaluation
+GRAD64_RTOL = 1e-4
 LEAF_ATOL = 1e-6
 BF16 = dict(cost_rtol=1e-2, cosine_margin=0.01)
 
@@ -434,23 +442,93 @@ def test_f32_step_metrics_match_jax(name, bn_stats):
                                        atol=1e-7, err_msg=f"{key} step {k}")
 
 
+def _jax_grads(r, k):
+    """JAX's gradient at the state before step k, read back from its
+    optimizer: g1 = t1 - decay * w0 and g2 = t2 - momentum * t1 - decay *
+    w1 (decay on "w" only)."""
+    j = r["jax"]
+    want = {}
+    for key, p in j[k]["momentum"].items():
+        want[key] = {}
+        for n, t in p.items():
+            prev = MOMENTUM * j[k - 1]["momentum"][key][n]
+            dec = DECAY * j[k - 1]["params"][key][n] if n == "w" else 0
+            want[key][n] = t - prev - dec
+    return want
+
+
+def _max_abs(a):
+    return float(np.abs(np.asarray(a, np.float64)).max())
+
+
+def _ulps(a, n=2):
+    """n float32 ulp of the largest magnitude in ``a``."""
+    return n * float(np.spacing(np.float32(_max_abs(a))))
+
+
+def _onepass_bounds(r):
+    """Per step k and leaf, how far the port's onepass gradient, momentum
+    and parameters may lie from JAX's (``{"grads", "momentum", "params"}``,
+    lists over k = 1, 2). The triangle inequality through the float64
+    gradient g64 of the port's state: |port g - JAX g| <= |port g - g64| +
+    |g64 - JAX g|, the first at most GRAD64_RTOL * max|g64| + LEAF_ATOL
+    (test_f32_step_gradients_match_float64), the second measured. Both
+    sides start from the same state; the bounds follow the updates t_k =
+    g_k + decay * w_(k-1) + momentum * t_(k-1), w_k = w_(k-1) - lr_k * t_k
+    (optax.sgd after add_decayed_weights), each side rounding t_k and w_k
+    to float32: 2 ulp of the leaf's largest value a step."""
+    lr = TL.darknet_lr_schedule(LR, burn_in=2)
+    out = {"grads": [], "momentum": [], "params": []}
+    t_prev = w_prev = None
+    for k in (1, 2):
+        jg, g64 = _jax_grads(r, k), r["grads64"][k - 1]
+        g_b, t_b, w_b = {}, {}, {}
+        for key in jg:
+            g_b[key], t_b[key], w_b[key] = {}, {}, {}
+            for n in jg[key]:
+                g = (_max_abs(np.asarray(jg[key][n], np.float64)
+                              - np.asarray(g64[key][n], np.float64))
+                     + GRAD64_RTOL * _max_abs(g64[key][n]) + LEAF_ATOL)
+                t = g + _ulps(r["jax"][k]["momentum"][key][n])
+                if k > 1:
+                    t += MOMENTUM * t_prev[key][n]
+                    if n == "w":
+                        t += DECAY * w_prev[key][n]
+                w = ((w_prev[key][n] if k > 1 else 0.0)
+                     + float(lr(k - 1)) * t
+                     + _ulps(r["jax"][k]["params"][key][n]))
+                g_b[key][n], t_b[key][n], w_b[key][n] = g, t, w
+        out["grads"].append(g_b)
+        out["momentum"].append(t_b)
+        out["params"].append(w_b)
+        t_prev, w_prev = t_b, w_b
+    return out
+
+
+def _assert_bounded(got, want, bound, what):
+    for k in want:
+        for n in want[k]:
+            err = np.abs(np.asarray(got[k][n], np.float64)
+                         - np.asarray(want[k][n], np.float64)).max()
+            assert err <= bound[k][n], (f"{what} {k}/{n}: |err| {err:.3g} > "
+                                        f"{bound[k][n]:.3g}")
+
+
 @pytest.mark.parametrize("name,bn_stats", F32_CASES)
 def test_f32_step_gradients_match_jax(name, bn_stats):
     """The port's gradients at the states before steps 1 and 2 against
-    JAX's, read back from its optimizer: g1 = t1 - decay * w0 and
-    g2 = t2 - momentum * t1 - decay * w1 (decay on "w" only)."""
+    JAX's (``_jax_grads``): twopass at LEAF_RTOL, onepass within the
+    triangle bound of ``_onepass_bounds``."""
     r = _runs(name, bn_stats, "float32")
-    j = r["jax"]
+    bounds = _onepass_bounds(r) if bn_stats == "onepass" else None
     for k in (1, 2):
-        want = {}
-        for key, p in j[k]["momentum"].items():
-            want[key] = {}
-            for n, t in p.items():
-                prev = MOMENTUM * j[k - 1]["momentum"][key][n]
-                dec = DECAY * j[k - 1]["params"][key][n] if n == "w" else 0
-                want[key][n] = t - prev - dec
-        _assert_leaves(r["grads"][k - 1], want, f"gradient before step {k}",
-                       LEAF_RTOL[bn_stats])
+        what = f"gradient before step {k}"
+        if bounds is None:
+            _assert_leaves(r["grads"][k - 1], _jax_grads(r, k), what,
+                           LEAF_RTOL[bn_stats])
+        else:
+            _assert_bounded(r["grads"][k - 1], _jax_grads(r, k),
+                            bounds["grads"][k - 1], what)
 
 
 @pytest.mark.parametrize("name,bn_stats", F32_CASES)
@@ -460,16 +538,25 @@ def test_f32_step_gradients_match_float64(name, bn_stats):
     r = _runs(name, bn_stats, "float32")
     for k in (0, 1):
         _assert_leaves(r["grads"][k], r["grads64"][k],
-                       f"gradient before step {k + 1}", 1e-4)
+                       f"gradient before step {k + 1}", GRAD64_RTOL)
 
 
 @pytest.mark.parametrize("what", ["params", "momentum", "stats"])
 @pytest.mark.parametrize("name,bn_stats", F32_CASES)
 def test_f32_step_state_matches_jax(name, bn_stats, what):
+    """twopass at LEAF_RTOL; onepass parameters and momentum within the
+    triangle bound of ``_onepass_bounds``, its running statistics at
+    LEAF_RTOL."""
     r = _runs(name, bn_stats, "float32")
+    bounds = (_onepass_bounds(r) if bn_stats == "onepass" and what != "stats"
+              else None)
     for k in (1, 2):
-        _assert_leaves(r["port"][k][what], r["jax"][k][what],
-                       f"{what} after step {k}", LEAF_RTOL[bn_stats])
+        if bounds is None:
+            _assert_leaves(r["port"][k][what], r["jax"][k][what],
+                           f"{what} after step {k}", LEAF_RTOL[bn_stats])
+        else:
+            _assert_bounded(r["port"][k][what], r["jax"][k][what],
+                            bounds[what][k - 1], f"{what} after step {k}")
 
 
 def _flat_delta(run, side):

@@ -230,3 +230,15 @@ def write_weights(specs, input_size, path, seed=0):
 def images(batch, size, seed=1):
     return np.random.default_rng(seed).integers(0, 256, (batch, size, size, 3),
                                                 dtype=np.uint8)
+
+
+def batch_invariant_conv():
+    """Context in which the CPU convolutions of the port give each image
+    the same bits at any batch size. oneDNN's CPU convolution picks its
+    algorithm by batch, and on AVX-512 CPUs it sums an image's products in
+    another order at batch 4 than at batch 1 (tests/test_torch_eval.py,
+    ``test_onednn_conv_batch_dependence``); PyTorch's own CPU convolution
+    does not. Tests of the port's batching (tail padding, the packed fetch,
+    state carried across batches) run under it, so that they hold the
+    batching and not the backend's algorithm."""
+    return torch.backends.mkldnn.flags(enabled=False)

@@ -22,9 +22,12 @@ with their scale s_in, no quantize pass, and the epilogue fmaf(acc, s_in *
 s_w, b), leaky, then int8 out requantized with s_out (or float32 out where
 the layer keeps no out scale). It has its own count, ``launches_q``.
 
-Dispatch is by the device of the input: a CUDA tensor launches the kernel
-(or raises), a CPU tensor runs the plain version. ``launches`` counts kernel
-launches and nothing else.
+The wrappers call the operators ``yolo_torch::quantize_act``,
+``conv2d_int8`` and ``conv2d_int8_q`` (ops/kernels/library.py), whose
+implementation is picked by the device of the input: a CUDA tensor launches
+the kernel (or raises), a CPU tensor runs the plain version, a fake one
+(under ``torch.export``) gives the output's shape, dtype and strides.
+``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_tensorflow_tpu_torch.ops import layers as L
-from yolo_tensorflow_tpu_torch.ops.kernels import build, igemm
+from yolo_tensorflow_tpu_torch.ops.kernels import build, igemm, library
 
 launches = 0
 launches_q = 0
@@ -78,19 +81,8 @@ def quantize_act_plain(x, s_x):
     return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
 
 
-def quantize_act(x, s_x):
-    """The int8 conv's prologue on its own: x (float32 or bfloat16,
-    contiguous in its memory format) quantized to int8 with scale s_x, in
-    x's shape and layout. The kernel on CUDA, the plain version on the CPU.
-    ``conv2d_int8`` runs the same pass itself; this entry exists to test and
-    time it, and does not count as a launch of the conv."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"quantize_act takes float32 or bfloat16, not "
-                        f"{x.dtype}")
-    if x.device.type == "cpu":
-        return quantize_act_plain(x, s_x)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_act runs on cpu or cuda, not {x.device}")
+def _quantize_cuda(x, s_x):
+    """quantize_act's operator on a CUDA tensor: the prologue kernel."""
     q = torch.empty_like(x, dtype=torch.int8)
     if q.stride() != x.stride():
         raise ValueError("quantize_act needs x dense in its memory format")
@@ -103,6 +95,27 @@ def quantize_act(x, s_x):
         raise RuntimeError(f"quantize_act kernel launch failed: CUDA error "
                            f"{err}")
     return q
+
+
+quantize_op = library.define(
+    "quantize_act(Tensor x, float s_x) -> Tensor",
+    cpu=quantize_act_plain, cuda=_quantize_cuda,
+    fake=lambda x, s_x: torch.empty_like(x, dtype=torch.int8))
+
+
+def quantize_act(x, s_x):
+    """The int8 conv's prologue on its own: x (float32 or bfloat16,
+    contiguous in its memory format) quantized to int8 with scale s_x, in
+    x's shape and layout, through the operator ``yolo_torch::quantize_act``:
+    the kernel on CUDA, the plain version on the CPU. ``conv2d_int8`` runs
+    the same pass itself; this entry exists to test and time it, and does
+    not count as a launch of the conv."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_act takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"quantize_act runs on cpu or cuda, not {x.device}")
+    return quantize_op(x, float(s_x))
 
 
 def _column(v, dtype):
@@ -167,19 +180,47 @@ def _check(x, w_q, s_w, b, stride, pad, act, epilogue_dtype,
                              "device")
 
 
+def _out_shape(x, w_q, stride, pad):
+    batch, _, h, w = x.shape
+    k = w_q.shape[-1]
+    return (batch, w_q.shape[0], (h + 2 * pad - k) // stride + 1,
+            (w + 2 * pad - k) // stride + 1)
+
+
+def _conv_cpu(x, w_q, s_x, s_w, b, stride, pad, leaky, epilogue_dtype):
+    """conv2d_int8's operator on CPU tensors: the plain version."""
+    return conv2d_int8_plain(x, w_q, s_x, s_w, b, stride=stride, pad=pad,
+                             act="leaky" if leaky else "linear",
+                             epilogue_dtype=epilogue_dtype)
+
+
+def _conv_cuda(x, w_q, s_x, s_w, b, stride, pad, leaky, epilogue_dtype):
+    return _launch(x, w_q, s_x, s_w, b, stride, pad,
+                   "leaky" if leaky else "linear", epilogue_dtype)
+
+
+def _conv_fake(x, w_q, s_x, s_w, b, stride, pad, leaky, epilogue_dtype):
+    return torch.empty(_out_shape(x, w_q, stride, pad), dtype=epilogue_dtype,
+                       device=x.device, memory_format=torch.channels_last)
+
+
+conv_op = library.define(
+    "conv2d_int8(Tensor x, Tensor w_q, float s_x, Tensor s_w, Tensor b, "
+    "int stride, int pad, bool leaky, ScalarType epilogue_dtype) -> Tensor",
+    cpu=_conv_cpu, cuda=_conv_cuda, fake=_conv_fake)
+
+
 def conv2d_int8(x, w_q, s_x, s_w, b, *, stride: int = 1, pad: int = None,
                 act: str = "linear", epilogue_dtype=torch.float32):
     """Quantize x with s_x, int8 conv with w_q (int32 accumulation),
     dequantize with s_x * s_w, add b, apply ``act``; the result is
-    (B, Cout, Ho, Wo) in channels-last memory, in ``epilogue_dtype``."""
+    (B, Cout, Ho, Wo) in channels-last memory, in ``epilogue_dtype``.
+    Goes through the operator ``yolo_torch::conv2d_int8``."""
     k = w_q.shape[-1]
     pad = k // 2 if pad is None else pad
     _check(x, w_q, s_w, b, stride, pad, act, epilogue_dtype)
-    if x.device.type == "cpu":
-        return conv2d_int8_plain(x, w_q, s_x, s_w, b, stride=stride, pad=pad,
-                                 act=act, epilogue_dtype=epilogue_dtype)
-    return _launch(x, w_q, float(s_x), s_w, b, stride, pad, act,
-                   epilogue_dtype)
+    return conv_op(x, w_q, float(s_x), s_w, b, int(stride), int(pad),
+                   act == "leaky", epilogue_dtype)
 
 
 def plan(x, w_q):
@@ -198,8 +239,7 @@ def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype):
     global launches
     batch, cin, h, w = x.shape
     cout, k = w_q.shape[0], w_q.shape[-1]
-    y = torch.empty((batch, cout, (h + 2 * pad - k) // stride + 1,
-                     (w + 2 * pad - k) // stride + 1), dtype=epilogue_dtype,
+    y = torch.empty(_out_shape(x, w_q, stride, pad), dtype=epilogue_dtype,
                     device=x.device, memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
@@ -278,21 +318,44 @@ def conv2d_int8_q_plain(xq, s_in, w_q, s_w, b, *, stride: int = 1,
     return y.contiguous(memory_format=torch.channels_last)
 
 
+def _conv_q_cpu(xq, s_in, w_q, s_w, b, stride, pad, leaky, s_out):
+    """conv2d_int8_q's operator on CPU tensors: the plain version."""
+    return conv2d_int8_q_plain(xq, s_in, w_q, s_w, b, stride=stride,
+                               pad=pad, act="leaky" if leaky else "linear",
+                               s_out=s_out)
+
+
+def _conv_q_cuda(xq, s_in, w_q, s_w, b, stride, pad, leaky, s_out):
+    return _launch_q(xq, s_in, w_q, s_w, b, stride, pad,
+                     "leaky" if leaky else "linear", s_out)
+
+
+def _conv_q_fake(xq, s_in, w_q, s_w, b, stride, pad, leaky, s_out):
+    return torch.empty(_out_shape(xq, w_q, stride, pad),
+                       dtype=torch.float32 if s_out is None else torch.int8,
+                       device=xq.device, memory_format=torch.channels_last)
+
+
+conv_q_op = library.define(
+    "conv2d_int8_q(Tensor xq, float s_in, Tensor w_q, Tensor s_w, Tensor b, "
+    "int stride, int pad, bool leaky, float? s_out) -> Tensor",
+    cpu=_conv_q_cpu, cuda=_conv_q_cuda, fake=_conv_q_fake)
+
+
 def conv2d_int8_q(xq, s_in, w_q, s_w, b, *, stride: int = 1,
                   pad: int = None, act: str = "linear", s_out=None):
     """int8 xq (B, Cin, H, W) in channels-last memory, quantized with scale
     s_in, convolved with w_q (int32 accumulation), dequantized with s_in *
     s_w, plus b, then ``act``; int8 requantized with s_out, or float32 where
-    s_out is None. Channels-last (B, Cout, Ho, Wo)."""
+    s_out is None. Channels-last (B, Cout, Ho, Wo). Goes through the
+    operator ``yolo_torch::conv2d_int8_q``."""
     k = w_q.shape[-1]
     pad = k // 2 if pad is None else pad
     _check(xq, w_q, s_w, b, stride, pad, act, torch.float32,
            x_dtypes=(torch.int8,))
-    if xq.device.type == "cpu":
-        return conv2d_int8_q_plain(xq, s_in, w_q, s_w, b, stride=stride,
-                                   pad=pad, act=act, s_out=s_out)
-    return _launch_q(xq, float(np.float32(s_in)), w_q, s_w, b, stride, pad,
-                     act, s_out)
+    return conv_q_op(xq, float(np.float32(s_in)), w_q, s_w, b, int(stride),
+                     int(pad), act == "leaky",
+                     None if s_out is None else float(s_out))
 
 
 def plan_q(xq, w_q, int8_out: bool = True):
@@ -310,8 +373,7 @@ def _launch_q(xq, s_in, w_q, s_w, b, stride, pad, act, s_out):
     batch, cin, h, w = xq.shape
     cout, k = w_q.shape[0], w_q.shape[-1]
     int8_out = s_out is not None
-    y = torch.empty((batch, cout, (h + 2 * pad - k) // stride + 1,
-                     (w + 2 * pad - k) // stride + 1),
+    y = torch.empty(_out_shape(xq, w_q, stride, pad),
                     dtype=torch.int8 if int8_out else torch.float32,
                     device=xq.device, memory_format=torch.channels_last)
     if y.numel() == 0:

@@ -17,9 +17,11 @@ rounded logits, the score bf16(s(conf) * s(max)) with the bf16 logistic
 rounded step by step (heads.sigmoid_bf16). Softmax classes ignore it, as
 the TPU package does.
 
-Dispatch is by the device of the input: a CUDA tensor launches the kernel
-(or raises), a CPU tensor runs the plain version. ``launches`` counts kernel
-launches and nothing else.
+The wrappers call the operator ``yolo_torch::decode`` (ops/kernels/
+library.py), whose implementation is picked by the device of the input: a
+CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
+version, a fake one (under ``torch.export``) gives the output shapes.
+``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from yolo_tensorflow_tpu_torch.models import heads
-from yolo_tensorflow_tpu_torch.ops.kernels import build
+from yolo_tensorflow_tpu_torch.ops.kernels import build, library
 
 launches = 0
 
@@ -203,21 +205,75 @@ def _outputs(feat, batch, rows):
 def _check_device(feat):
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode runs on cpu or cuda, not {feat.device}")
-    return feat.device.type == "cuda"
+
+
+def _per_scale(anchors, num_anchors):
+    """The flat anchor list of the operator -> [[(w, h), ...] per scale]."""
+    out, i = [], 0
+    for a in num_anchors:
+        out.append([(anchors[2 * j], anchors[2 * j + 1])
+                    for j in range(i, i + a)])
+        i += a
+    return out
+
+
+def _decode_cpu(feats, anchors, num_anchors, input_size, num_classes,
+                softmax, score_bf16):
+    """The operator on CPU tensors: the plain version, scale by scale."""
+    parts = [heads.decode_scale_scored(
+        f, a, input_size, num_classes, class_softmax=softmax,
+        score_dtype=torch.bfloat16 if score_bf16 else None)
+        for f, a in zip(feats, _per_scale(anchors, num_anchors))]
+    boxes, scores, labels = (torch.cat([p[k] for p in parts], dim=1)
+                             for k in range(3))
+    return heads.xywh_to_xyxy(boxes), scores, labels
+
+
+def _rows(feats, num_anchors):
+    return sum(f.shape[1] * f.shape[2] * a
+               for f, a in zip(feats, num_anchors))
+
+
+def _decode_cuda(feats, anchors, num_anchors, input_size, num_classes,
+                 softmax, score_bf16):
+    """The operator on CUDA tensors: one launch of csrc/decode.cu over every
+    scale, each into its row range of one set of outputs."""
+    out = _outputs(feats[0], feats[0].shape[0], _rows(feats, num_anchors))
+    _launch([(f, a, softmax) for f, a in
+             zip(feats, _per_scale(anchors, num_anchors))], input_size,
+            num_classes, *out, score_bf16=score_bf16)
+    return out
+
+
+def _decode_fake(feats, anchors, num_anchors, input_size, num_classes,
+                 softmax, score_bf16):
+    return _outputs(feats[0], feats[0].shape[0], _rows(feats, num_anchors))
+
+
+decode_op = library.define(
+    "decode(Tensor[] feats, float[] anchors, int[] num_anchors, "
+    "int input_size, int num_classes, bool softmax, bool score_bf16) -> "
+    "(Tensor, Tensor, Tensor)",
+    cpu=_decode_cpu, cuda=_decode_cuda, fake=_decode_fake)
+
+
+def _call(scales, input_size, num_classes, score_bf16=False):
+    """``decode_op`` over the scales [(feat, anchors_px, class_softmax)],
+    which share their class activation."""
+    for feat, _, _ in scales:
+        _check_device(feat)
+    return decode_op([f for f, _, _ in scales],
+                     [float(v) for _, a, _ in scales for p in a for v in p],
+                     [len(a) for _, a, _ in scales], int(input_size),
+                     int(num_classes), bool(scales[0][2]), bool(score_bf16))
 
 
 def decode_scale_fused(feat, anchors_px, input_size: int, num_classes: int,
                        *, class_softmax: bool = False):
     """One head scale: feat (B, G, G, A*(5+C)) -> (boxes_xyxy (B, N, 4),
     score (B, N), label (B, N) int32) with N = G*G*A."""
-    if not _check_device(feat):
-        return decode_scale_plain(feat, anchors_px, input_size, num_classes,
-                                  class_softmax=class_softmax)
-    B, G = feat.shape[:2]
-    out = _outputs(feat, B, G * G * len(anchors_px))
-    _launch([(feat, anchors_px, class_softmax)], input_size, num_classes,
-            *out)
-    return out
+    return _call([(feat, anchors_px, class_softmax)], input_size,
+                 num_classes)
 
 
 def decode_fused(detections, cfg, score_dtype=None):
@@ -225,13 +281,7 @@ def decode_fused(detections, cfg, score_dtype=None):
     TPU package's decode_fused. Returns (boxes_xyxy, scores, labels). On
     CUDA one launch decodes every scale (MAX_SCALES at most), each into its
     row range of one set of outputs. ``score_dtype`` applies to the v3
-    head only."""
+    head only. Goes through the operator ``yolo_torch::decode``."""
     bf16 = heads.check_score_dtype(score_dtype) and cfg.head == 3
-    scales = heads.head_scales(detections, cfg)
-    feat0 = scales[0][0]
-    if not _check_device(feat0):
-        return decode_plain(detections, cfg, score_dtype=score_dtype)
-    rows = sum(f.shape[1] * f.shape[2] * len(a) for f, a, _ in scales)
-    out = _outputs(feat0, feat0.shape[0], rows)
-    _launch(scales, cfg.input_size, cfg.num_classes, *out, score_bf16=bf16)
-    return out
+    return _call(heads.head_scales(detections, cfg), cfg.input_size,
+                 cfg.num_classes, score_bf16=bf16)

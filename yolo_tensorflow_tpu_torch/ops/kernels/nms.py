@@ -13,16 +13,18 @@ f32, scores (B, K) f32 in descending order, labels (B, K) int32. Both return
 the five ``Detections`` fields: boxes (B, D, 4), scores (B, D), classes
 (B, D) int32, valid (B, D) bool and num (B,) int32.
 
-Dispatch is by the device of the input: a CUDA tensor launches the kernel
-(or raises), a CPU tensor runs the plain version. ``launches`` counts kernel
-launches and nothing else.
+``greedy_select`` calls the operator ``yolo_torch::nms`` (ops/kernels/
+library.py), whose implementation is picked by the device of the input: a
+CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
+version, a fake one (under ``torch.export``) gives the output shapes.
+``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
 
 import torch
 
-from yolo_tensorflow_tpu_torch.ops.kernels import build
+from yolo_tensorflow_tpu_torch.ops.kernels import build, library
 
 launches = 0
 
@@ -141,21 +143,32 @@ def _check(boxes, scores, labels, conf_threshold, max_detections):
         if t.dtype != dt or t.device != boxes.device:
             raise ValueError("candidates must be f32 boxes, f32 scores and "
                              "int32 labels on one device")
-    return boxes.device.type == "cuda"
 
 
-def greedy_select(boxes, scores, labels, *, conf_threshold: float,
-                  iou_threshold: float, max_detections: int,
-                  class_aware: bool):
-    """Greedy NMS of the ranked candidates of every image, then the first
-    ``max_detections`` kept ones in rank order, padded with zeros and
-    valid = False. A CUDA input launches ``csrc/nms.cu`` once for the
-    batch; its K must fit a CTA's shared memory (``shared_bytes``)."""
-    if not _check(boxes, scores, labels, conf_threshold, max_detections):
-        return greedy_select_plain(
-            boxes, scores, labels, conf_threshold=conf_threshold,
-            iou_threshold=iou_threshold, max_detections=max_detections,
-            class_aware=class_aware)
+def _outputs(b, max_detections, device):
+    return (torch.empty((b, max_detections, 4), dtype=torch.float32,
+                        device=device),
+            torch.empty((b, max_detections), dtype=torch.float32,
+                        device=device),
+            torch.empty((b, max_detections), dtype=torch.int32,
+                        device=device),
+            torch.empty((b, max_detections), dtype=torch.bool, device=device),
+            torch.empty((b,), dtype=torch.int32, device=device))
+
+
+def _nms_cpu(boxes, scores, labels, conf_threshold, iou_threshold,
+             max_detections, class_aware):
+    """The operator on CPU tensors: the plain version."""
+    return greedy_select_plain(
+        boxes, scores, labels, conf_threshold=conf_threshold,
+        iou_threshold=iou_threshold, max_detections=max_detections,
+        class_aware=class_aware)
+
+
+def _nms_cuda(boxes, scores, labels, conf_threshold, iou_threshold,
+              max_detections, class_aware):
+    """The operator on CUDA tensors: one launch of csrc/nms.cu for the
+    batch."""
     global launches
     b, k = scores.shape
     shared_bytes(k, max_detections)
@@ -164,12 +177,7 @@ def greedy_select(boxes, scores, labels, *, conf_threshold: float,
         raise ValueError("nms kernel reads boxes as float4: they must start "
                          "on a 16-byte boundary")
     dev = boxes.device
-    out = (torch.empty((b, max_detections, 4), dtype=torch.float32,
-                       device=dev),
-           torch.empty((b, max_detections), dtype=torch.float32, device=dev),
-           torch.empty((b, max_detections), dtype=torch.int32, device=dev),
-           torch.empty((b, max_detections), dtype=torch.bool, device=dev),
-           torch.empty((b,), dtype=torch.int32, device=dev))
+    out = _outputs(b, max_detections, dev)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -181,3 +189,29 @@ def greedy_select(boxes, scores, labels, *, conf_threshold: float,
         raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def _nms_fake(boxes, scores, labels, conf_threshold, iou_threshold,
+              max_detections, class_aware):
+    return _outputs(scores.shape[0], max_detections, boxes.device)
+
+
+nms_op = library.define(
+    "nms(Tensor boxes, Tensor scores, Tensor labels, float conf_threshold, "
+    "float iou_threshold, int max_detections, bool class_aware) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=_nms_cpu, cuda=_nms_cuda, fake=_nms_fake)
+
+
+def greedy_select(boxes, scores, labels, *, conf_threshold: float,
+                  iou_threshold: float, max_detections: int,
+                  class_aware: bool):
+    """Greedy NMS of the ranked candidates of every image, then the first
+    ``max_detections`` kept ones in rank order, padded with zeros and
+    valid = False, through the operator ``yolo_torch::nms``. A CUDA input
+    launches ``csrc/nms.cu`` once for the batch; its K must fit a CTA's
+    shared memory (``shared_bytes``)."""
+    _check(boxes, scores, labels, conf_threshold, max_detections)
+    return nms_op(boxes, scores, labels, float(conf_threshold),
+                  float(iou_threshold), int(max_detections),
+                  bool(class_aware))
