@@ -2,6 +2,12 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py          # from the repository root; needs one card
+    python3 chip_smoke.py --parent DIR   # also times DIR's direct int8 kernel
+
+``--parent DIR``: an earlier checkout of the repository (``git archive``),
+whose csrc/conv_int8.cu is built beside this one and its first-conv kernel
+timed in turns with this one's (phases 6, 18 and 23); without it those
+times print as "not measured".
 
 Phases, one line or more each (a failed phase exits nonzero, and no phase's
 failure is caught):
@@ -38,7 +44,11 @@ failure is caught):
              with leaky, and on the odd cases of INT8_ODD (ragged Cout and
              M, 1x1 images, stride 2, Cin that cp.async cannot copy,
              unaligned weights, small first convs); the quantize prologue
-             bit for bit. Then, per shape at batch 64 in bf16: the kernel
+             bit for bit; the direct first-conv kernel at the 3x3 cases of
+             DIRECT_ODD (tile edges), both entries, 0 ulp, and at yolov3's
+             first conv at batch 64 (bf16 in and out): ms, bound, plain,
+             cuDNN's bf16 conv and the parent's kernel in turns. Then, per
+             shape at batch 64 in bf16: the kernel
              instance and tile, kernel ms (prologue + GEMM) and TOPS from
              CUDA events, the prologue's ms alone, its bound, the plain
              version's ms, torch._int_mm's ms for the 1x1 shapes (the same
@@ -111,7 +121,10 @@ failure is caught):
              entry launched for every quantized conv, the decode once, no
              quantize pass); batch-64 img/s and backbone ms beside phase
              7's mixed int8; per shape at batch 64 the entry's ms beside the
-             mixed kernel's, its plain ms and its bound.
+             mixed kernel's, its plain ms and its bound; the direct kernel
+             at yolov3's first conv, int8 in and out, beside the parent's,
+             and (with --parent) the other convs' sum beside the parent
+             build's, in turns, outputs equal.
  19. bnstat darknet19 (A): the fused conv + BN-statistics kernel against
              its plain version, f32 and bf16, at every distinct 3x3
              stride-1 BN conv of yolov2 at each of run_training's
@@ -143,13 +156,17 @@ failure is caught):
              torch.profiler trace of eight steps.
  23. int8 k7: the int8 conv kernel at yolov1's 7x7 stride-2 first conv
              (Cin 3, Cout 64, 448^2) at batch 64 and the odd cases of
-             K7_ODD, both entries, f32 and bf16, against the plain twins
-             (0 ulp); its time beside its bound and plain time; int8
+             K7_ODD and the 7x7 cases of DIRECT_ODD, both entries, f32 and
+             bf16, against the plain twins (0 ulp); both entries' times
+             beside their bounds, plain times, cuDNN's bf16 conv and the
+             parent's kernel; int8
              yolov1-448 (24 quantized convs, the connected head float) f32
              against the CPU port with the int8 conv launched 24 times a
              forward, and bf16 batch-64 img/s beside float yolov1's;
              then the kernel at 5x5, padding-0, stride-3 and the
-             GEOM_ODD geometries, both entries against the plain twins
+             GEOM_ODD geometries (a 7x7 stride-9 first conv among them,
+             direct or gather by its shared memory), both entries against
+             the plain twins
              (0 ulp), timed beside plain and a cuDNN bf16 conv, and a cfg
              whose int8 convs include the first three: one counted
              forward launches the kernel for each of its 5 int8 convs,
@@ -216,8 +233,9 @@ failure is caught):
              set_sync_debug_mode("error"), the rates the host table's.
 Then a JSON line describing each kernel (conv3x3_bnstat: launches, ms,
 bound, plain and library ms all over one step each of yolov3 (phases 8 and
-10), yolov2-416 and darknet19-256 (phases 19 and 21)), and last the JSON
-result line.
+10), yolov2-416 and darknet19-256 (phases 19 and 21); conv_int8_direct:
+its launches in phase 7's int8 forward, its numbers at yolov3's first conv
+from phase 6), and last the JSON result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
 weights in the repository), at full width and depth: Darknet-53 + FPN
@@ -425,14 +443,26 @@ CLI_TICS = 50            # speed's forwards
 CLI_ECHO = 4             # output lines of each command echoed
 DENORM_DRIFT = 1e-3      # denormalize's sqrt(var + 1e-5) against the BN form
 GEOM_CONF = 0.3          # phase 23's shallow int8 geometry net
+# The direct first-conv kernel (Cin 3) at its tile edges, (batch, k,
+# stride, pad, Cout, H, W): H and W off every multiple of its 8 x 32 output
+# tile times the stride (M ragged at the CTA), Cout 8 to the most, stride 3
+# and padding 0 and k - 1, 1x1 images. Phase 6 runs the 3x3 ones, phase 23
+# the 7x7 ones, both entries against the plain twins, 0 ulp.
+DIRECT_ODD = ((3, 3, 1, 1, 8, 37, 45), (3, 3, 2, 1, 24, 29, 70),
+              (3, 3, 3, 0, 16, 23, 101), (3, 3, 1, 0, 32, 9, 33),
+              (1, 3, 1, 1, 16, 1, 1), (3, 7, 2, 3, 48, 47, 66),
+              (3, 7, 1, 0, 8, 15, 40), (3, 7, 3, 2, 24, 30, 100),
+              (2, 7, 2, 6, 64, 11, 13), (1, 7, 2, 3, 64, 1, 1))
 # phase 23's odd geometries (k, stride, pad, Cin, Cout, side, batch): a
 # Cin-3 first conv at 5x5 (gather), at 3x3 stride 3 and at 3x3 padding 0
-# (the direct kernel), an even 2x2 stride-2 conv, padding past k // 2,
-# a 5x5 stride 2, ragged Cout
+# (the direct kernel), at 7x7 stride 9 (the direct kernel's patch passes
+# its shared memory with float32 out, so f32 and the int8-in entry's
+# float32 out take gather, bf16 and int8 out the direct kernel), an even
+# 2x2 stride-2 conv, padding past k // 2, a 5x5 stride 2, ragged Cout
 GEOM_ODD = ((5, 1, 2, 3, 32, 37, 2), (3, 3, 1, 3, 32, 40, 2),
-            (3, 1, 0, 3, 16, 23, 3), (2, 2, 0, 16, 32, 19, 2),
-            (3, 1, 2, 16, 24, 11, 2), (5, 2, 2, 64, 72, 30, 2),
-            (1, 3, 0, 32, 40, 17, 1))
+            (3, 1, 0, 3, 16, 23, 3), (7, 9, 3, 3, 64, 100, 2),
+            (2, 2, 0, 16, 32, 19, 2), (3, 1, 2, 16, 24, 11, 2),
+            (5, 2, 2, 64, 72, 30, 2), (1, 3, 0, 32, 40, 17, 1))
 
 
 def require(cond, msg):
@@ -441,24 +471,11 @@ def require(cond, msg):
 
 
 def cuda_ms(fn, iters=20, warmup=3, ahead_cycles=0):
-    """Mean device time of fn() in ms, from CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls. ``ahead_cycles``: the card
-    first spins that many clock cycles, so that the host has queued every
-    call before the first one runs. Without it a kernel that is shorter
-    than its wrapper's host time measures the host."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if ahead_cycles:
-        torch.cuda._sleep(ahead_cycles)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """The port's utils/profiling.cuda_ms: mean device time of fn() in ms
+    from CUDA events (``ahead_cycles``: the card spins first, so that the
+    host has queued every call before the first one runs)."""
+    from yolo_tensorflow_tpu_torch.utils.profiling import cuda_ms as timed
+    return timed(fn, iters, warmup, ahead_cycles)
 
 
 def wall_ms(fn, iters):
@@ -512,7 +529,8 @@ def _wrappers():
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
     from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
     return {"decode": (K, "launches"), "nms": (NK, "launches"),
-            "int8": (Q8, "launches"), "int8_q": (Q8, "launches_q")}
+            "int8": (Q8, "launches"), "int8_q": (Q8, "launches_q"),
+            "int8_direct": (Q8, "launches_direct")}
 
 
 def reset_counts():
@@ -813,8 +831,10 @@ def int8_cost(batch, k, stride, cin, cout, h, in_bytes, out_bytes,
     return nbytes, 2 * m * cout * k * k * cin
 
 
-def int8_kernel_phase(shapes, dev):
-    """Phase 6. Returns the kernel's JSON fields measured here."""
+def int8_kernel_phase(shapes, dev, smi, parent):
+    """Phase 6. Returns the kernel's JSON fields measured here, and the
+    direct first-conv kernel's at yolov3's first conv (timed beside
+    ``parent``'s, where given)."""
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     for h, cin, cout in PROBE_SHAPES:
@@ -876,6 +896,10 @@ def int8_kernel_phase(shapes, dev):
           f"{worst_ulps} ulp of plain (limit {INT8_ULPS}), max |err| "
           f"{max_err:.3g}; the quantize prologue equal to plain, also "
           f"unaligned; (instance, BN) taken: {dict(used)}")
+    direct_odd_check("6 int8 direct", dev, (3,))
+    (k, stride, _, cout, h), = [s for s in shapes if s[2] == 3]
+    direct_fields = direct_times("6 int8 direct", k, stride, cout, h, 0, dev,
+                                 smi, parent)
 
     tot = collections.Counter()
     for (k, stride, cin, cout, h), n in sorted(shapes.items(),
@@ -886,7 +910,7 @@ def int8_kernel_phase(shapes, dev):
         ms = cuda_ms(lambda: Q8.conv2d_int8(x, w_q, s_x, s_w, b, **kw),
                      iters=10)
         instance, bn = Q8.plan(x, w_q)
-        # the direct kernel quantizes in registers: no prologue pass
+        # the direct kernel quantizes in shared memory: no prologue pass
         quant = (0.0 if instance == "direct" else
                  cuda_ms(lambda: Q8.quantize_act(x, s_x), iters=10))
         plain = cuda_ms(lambda: Q8.conv2d_int8_plain(x, w_q, s_x, s_w, b,
@@ -935,8 +959,9 @@ def int8_kernel_phase(shapes, dev):
           f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms; "
           f"torch._int_mm over the 1x1 convs {tot['int_mm']:.3f} ms, cuDNN "
           f"bf16 over the 3x3 convs {tot['cudnn_3x3']:.3f} ms")
-    return {"max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain"],
-            "bound_ms": tot["bound"], "bound_by": by, "library_ms": None}
+    return ({"max_abs_err": max_err, "ms": tot["ms"],
+             "plain_ms": tot["plain"], "bound_ms": tot["bound"],
+             "bound_by": by, "library_ms": None}, direct_fields)
 
 
 def step_split(det, x, cfg, conf):
@@ -968,9 +993,10 @@ def step_split(det, x, cfg, conf):
 
 
 def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
-    """Phase 7. Returns the int8 conv launches of one forward, the int8
-    params, the calibration batches, and the bf16 batch-SERVE_BATCH img/s
-    and backbone ms."""
+    """Phase 7. Returns the int8 conv launches of one forward (all, and
+    those of the direct first-conv kernel), the int8 params, the
+    calibration batches, and the bf16 batch-SERVE_BATCH img/s and backbone
+    ms."""
     from yolo_tensorflow_tpu_torch.io import weights as W
     from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.ops import quant as Q
@@ -1002,19 +1028,23 @@ def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
     gpu = Detector(MODEL, params=qparams, device="cuda", conf_threshold=CONF)
     gpu.detect_batch(imgs)                     # warm-up, outside the count
     torch.cuda.synchronize()
-    Q8.launches = K.launches = NK.launches = 0
+    Q8.launches = Q8.launches_direct = K.launches = NK.launches = 0
     got = gpu.detect_batch(imgs)               # f32 epilogue: parity mode
     torch.cuda.synchronize()
     launches, dec_launches = Q8.launches, K.launches
-    require(launches == n_int8 and dec_launches == NK.launches == 1,
+    direct_launches = Q8.launches_direct
+    require(launches == n_int8 and direct_launches == 1
+            and dec_launches == NK.launches == 1,
             f"int8 path launched the int8 conv {launches} times (expected "
-            f"{n_int8}), the decode {dec_launches} times and NMS "
+            f"{n_int8}), the direct first-conv kernel {direct_launches} "
+            f"times, the decode {dec_launches} times and NMS "
             f"{NK.launches} times (expected 1 each)")
     cpu = Detector(MODEL, params=qparams, device="cpu", conf_threshold=CONF)
     check_detections("7 int8 f32", gpu, imgs, NMS.fetch_detections(got),
                      NMS.fetch_detections(cpu.detect_batch(imgs)), cfg, kind)
     print(f"[7 int8 f32] one forward launched the int8 conv {launches} times "
-          f"and the decode and NMS once each")
+          f"(the direct first-conv kernel {direct_launches} of them) and the "
+          f"decode and NMS once each")
     del gpu, cpu
 
     det = Detector(MODEL, params=qparams, device="cuda",
@@ -1026,7 +1056,7 @@ def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
             "int8 bf16 detections empty or not finite")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counted_forward("7 int8 bf16", lambda: det.detect_batch(x),
-                    int8=n_int8, decode=1, nms=1)
+                    int8=n_int8, int8_direct=1, decode=1, nms=1)
     net_ms, dec_ms, nms_ms, _ = step_split(det, x, cfg, CONF)
     with torch.inference_mode():
         xn = normalize_images(x, cfg, torch.bfloat16)
@@ -1057,7 +1087,8 @@ def int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind):
           f"{conv_ms:.2f} ms + the rest {net_ms - conv_ms:.2f} ms, decode "
           f"{dec_ms:.4f} ms, NMS {nms_ms:.4f} ms (device); peak memory "
           f"{peak:.2f} GiB; mean num {out.num.mean():.1f}")
-    return launches, qparams, calib, statistics.median(rates), net_ms
+    return (launches, direct_launches, qparams, calib,
+            statistics.median(rates), net_ms)
 
 
 def bnstat_shapes(specs, cfg):
@@ -2655,7 +2686,7 @@ def int8_q_check(label, ops, stride, used):
 
 
 def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
-                   mixed_rate, mixed_net_ms, kind, smi):
+                   mixed_rate, mixed_net_ms, kind, smi, parent):
     """Phase 18, the all-int8-activation path. Returns the int8-in
     entry's launches in one forward and its JSON fields."""
     from yolo_tensorflow_tpu_torch.io import weights as W
@@ -2663,6 +2694,7 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
     from yolo_tensorflow_tpu_torch.models import specs as S
     from yolo_tensorflow_tpu_torch.ops import layers as L
     from yolo_tensorflow_tpu_torch.ops import quant as Q
+    from yolo_tensorflow_tpu_torch.ops.kernels import build
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
     from yolo_tensorflow_tpu_torch.pipeline import normalize_images
     from yolo_tensorflow_tpu_torch.post import nms as NMS
@@ -2739,7 +2771,7 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
     fwd(gpu_params, x2)                         # warm-up
     got = NMS.fetch_detections(counted_forward(
         "18 int8-act f32", lambda: fwd(gpu_params, x2), int8_q=n_q, int8=0,
-        decode=1, nms=1))
+        int8_direct=1, decode=1, nms=1))
     want = NMS.fetch_detections(fwd(cpu_params, torch.as_tensor(imgs)))
     with torch.inference_mode():
         xn = normalize_images(x2, cfg)
@@ -2769,7 +2801,7 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
     require(np.isfinite(out.boxes).all() and np.all(out.num > 0),
             "int8-activation detections empty or not finite")
     counted_forward("18 int8-act serve", lambda: fwd(gpu_params, x),
-                    int8_q=n_q, int8=0, decode=1, nms=1)
+                    int8_q=n_q, int8=0, int8_direct=1, decode=1, nms=1)
     with torch.inference_mode():
         xn = normalize_images(x, cfg)
         net_ms = cuda_ms(lambda: Q.apply_int8(specs, gpu_params, outs, xn),
@@ -2804,8 +2836,25 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
         xq, s_in, w_q, s_w, b, s_out = int8_q_operands(
             gen, dev, SERVE_BATCH, k, cin, cout, h)
         kw = dict(stride=stride, act="leaky")
-        ms = cuda_ms(lambda: Q8.conv2d_int8_q(xq, s_in, w_q, s_w, b,
-                                              s_out=s_out, **kw), iters=10)
+        fn = lambda: Q8.conv2d_int8_q(xq, s_in, w_q, s_w, b, s_out=s_out,
+                                      **kw)
+        ms = cuda_ms(fn, iters=10)
+        if parent is not None and Q8.plan_q(xq, w_q)[0] != "direct":
+            # this build's wgmma / gather instances and the parent build's,
+            # launched the same way (no operator dispatch) with the host
+            # kept ahead, in turns: kernel, parent, kernel, parent
+            def launcher(lib):
+                return lambda: Q8._launch_q(xq, s_in, w_q, s_w, b, stride,
+                                            k // 2, "leaky", s_out, lib)
+            own, par = launcher(build.load()), launcher(parent)
+            require(torch.equal(par(), fn()), f"18 int8-in k{k} "
+                    f"{cin}->{cout}: the parent's kernel differs")
+            g_ms, p_ms = [], []
+            for _ in range(2):
+                g_ms.append(cuda_ms(own, iters=10, ahead_cycles=SPIN))
+                p_ms.append(cuda_ms(par, iters=10, ahead_cycles=SPIN))
+            tot["gemm"] += n * min(g_ms)
+            tot["parent_gemm"] += n * min(p_ms)
         xb = (xq.float() * 0.02).to(torch.bfloat16)
         mixed = cuda_ms(lambda: Q8.conv2d_int8(
             xb, w_q, 0.02, s_w, b, epilogue_dtype=torch.bfloat16, **kw),
@@ -2838,6 +2887,14 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
           f"layers {tot['bound_bytes']:.3f}, operations-bound "
           f"{tot['bound_operations']:.3f}), plain {tot['plain']:.2f} ms; on "
           f"{smi}")
+    if parent is not None:
+        print(f"[18 int8-act kernel] the {sum(shapes.values()) - 1} wgmma / "
+              f"gather convs, timed in turns with the parent's build: "
+              f"{tot['gemm']:.3f} ms, the parent's {tot['parent_gemm']:.3f} "
+              f"ms (outputs equal); on {smi}")
+    (k, stride, _, cout, h), = [s for s in shapes if s[2] == 3]
+    direct_times("18 int8-act direct", k, stride, cout, h, 1, dev, smi,
+                 parent)
     return n_q, {"max_abs_err": max_err, "ms": tot["ms"],
                         "plain_ms": tot["plain"], "bound_ms": tot["bound"],
                         "bound_by": by, "library_ms": None}
@@ -2875,26 +2932,129 @@ def int8_entries_check(label, ops, stride, used, pad=None):
                 for s_out in (0.9, None)]
         torch.cuda.synchronize()
         require(got.shape == want.shape and torch.equal(got, want),
-                f"{label} {act} {Q8.plan(x, w_q)}: "
+                f"{label} {act} {Q8.plan(x, w_q, stride, dtype)}: "
                 f"{ulp_distance(got, want)} ulps from plain")
         for g, w in outs:
             require(torch.equal(g, w), f"{label} {act} int8-in "
-                    f"{Q8.plan_q(xq, w_q, g.dtype == torch.int8)} "
+                    f"{Q8.plan_q(xq, w_q, g.dtype == torch.int8, stride)} "
                     f"{g.dtype}: {int((g != w).sum())} differ from plain")
-        used[Q8.plan(x, w_q)] += 1
+        used[Q8.plan(x, w_q, stride, dtype)] += 1
 
 
-def int8_k7_phase(dev, kind, smi, v1_path):
+def direct_odd_check(label, dev, ks):
+    """The direct first-conv kernel at the DIRECT_ODD cases of kernel
+    size in ``ks`` (H != W, tile edges), f32 and bf16, leaky and linear,
+    both entries (int8 and float32 out for the int8-in one), against the
+    plain twins: equal. Returns the (instance, BN) counter."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    used = collections.Counter()
+    cases = [c for c in DIRECT_ODD if c[1] in ks]
+    for (batch, k, stride, pad, cout, h, w) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((batch, 3, h, w), generator=gen, device=dev)
+                 * 2).to(dtype).contiguous(memory_format=torch.channels_last)
+            w_q = torch.randint(-127, 128, (cout, 3, k, k), generator=gen,
+                                device=dev).to(torch.int8).contiguous(
+                                    memory_format=torch.channels_last)
+            s_w = (torch.rand(cout, generator=gen, device=dev) + 0.5) / 127
+            b = torch.randn(cout, generator=gen, device=dev)
+            int8_entries_check(
+                f"{label} B={batch} {k}x{k} s{stride} p{pad} 3->{cout} at "
+                f"{h}x{w} {dtype}", (x, w_q, 4.0 / 127, s_w, b), stride, used,
+                pad=pad)
+    require({plan[0] for plan in used} == {"direct"},
+            f"{label}: the odd cases took {dict(used)}, not the direct "
+            "kernel")
+    print(f"[{label}] the direct kernel at {len(cases)} tile-edge cases "
+          f"(B, k, stride, pad, Cout, H, W) {cases}, f32 and bf16, leaky and "
+          f"linear, both entries: equal to the plain twins, 0 ulp; (instance,"
+          f" BN) taken: {dict(used)}")
+    return used
+
+
+def direct_times(label, k, stride, cout, size, entry, dev, smi, parent):
+    """Device ms of the direct first-conv kernel at batch SERVE_BATCH, one
+    entry (0: conv2d_int8, bf16 in and out; 1: conv2d_int8_q, int8 in and
+    out), in turns with ``parent``'s kernel (the library --parent built, or
+    None) as parent, kernel, kernel, parent, beside its bound, its plain
+    twin and
+    (bf16 entry) cuDNN's bf16 conv of the same shape, which computes
+    another function (context only). Returns the kernel's JSON fields."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    from yolo_tensorflow_tpu_torch.ops.kernels import direct_probe as DP
+    require(DP.BATCH == SERVE_BATCH, f"direct_probe's batch {DP.BATCH}")
+    ops = DP.case_operands(k, stride, cout, size, dev, SEED + 12 + k)
+    kw = dict(stride=stride, act="leaky")
+    def plain_fn():
+        if entry == 0:
+            return Q8.conv2d_int8_plain(
+                ops["x"], ops["w_q"], ops["s_x"], ops["s_w"], ops["b"],
+                epilogue_dtype=torch.bfloat16, **kw)
+        return Q8.conv2d_int8_q_plain(
+            ops["xq"], ops["s_in"], ops["w_q"], ops["s_w"], ops["b"],
+            s_out=ops["s_out"], **kw)
+
+    plan = (Q8.plan(ops["x"], ops["w_q"]) if entry == 0 else
+            Q8.plan_q(ops["xq"], ops["w_q"]))
+    require(plan[0] == "direct", f"{label}: {plan}, not the direct kernel")
+    fn = DP.entry_calls(ops, k, stride)[entry]
+    want = fn()
+    plain_out = plain_fn()
+    torch.cuda.synchronize()
+    err = (want.float() - plain_out.float()).abs().max().item()
+    require(torch.equal(want, plain_out), f"{label}: kernel != plain "
+            f"({err})")
+    turns = [("kernel", fn)]
+    if parent is not None:
+        parent_fn = DP.entry_calls(ops, k, stride, parent)[entry]
+        got = parent_fn()
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{label}: the parent's kernel "
+                "differs from this one")
+        turns = [("parent", parent_fn)] + turns * 2 + [("parent", parent_fn)]
+    times = collections.defaultdict(list)
+    for name, f in turns:
+        times[name].append(cuda_ms(f, iters=20))
+    ms = min(times["kernel"])
+    plain = cuda_ms(plain_fn, iters=1, warmup=1)
+    nbytes, ops_n = int8_cost(SERVE_BATCH, k, stride, 3, cout, size,
+                              2 - entry, 2 - entry)
+    bnd, by = bound_ms(nbytes, ops_n, INT8_OPS_S)
+    parent = ("parent's kernel " + " / ".join(f"{v:.4f}"
+                                              for v in times["parent"])
+              + " ms" if "parent" in times else
+              "parent's kernel not measured (no --parent)")
+    other = ""
+    if entry == 0:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        wf = torch.randn((cout, 3, k, k), generator=gen, device=dev,
+                         dtype=torch.bfloat16).contiguous(
+                             memory_format=torch.channels_last)
+        cudnn = cuda_ms(lambda: F.conv2d(ops["x"], wf, stride=stride,
+                                         padding=k // 2), iters=10)
+        other = f"; cuDNN bf16 conv {cudnn:.4f} ms (context: not the same " \
+                "function)"
+    print(f"[{label}] the direct kernel at B={SERVE_BATCH} {k}x{k} s{stride} "
+          f"3->{cout} at {size}^2, {DP.ENTRIES[entry]}: {plan}, kernel "
+          + " / ".join(f"{v:.4f}" for v in times["kernel"])
+          + f" ms ({ops_n / ms / 1e9:.1f} TOPS), bound {bnd:.4f} ms ({by}; "
+          f"{nbytes / 1e6:.0f} MB, {ops_n / 1e9:.1f} G int8 ops), "
+          f"{ms / bnd:.2f}x it; plain {plain:.3f} ms; {parent}{other}; on "
+          f"{smi}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None}
+
+
+def int8_k7_phase(dev, kind, smi, v1_path, parent):
     """Phase 23. The int8 kernel at yolov1's 7x7 stride-2 first conv, both
     entries, against their plain twins and timed; int8 yolov1-448 (all 24
     convs quantized, the connected head float) f32 against the CPU port,
     and bf16 serving beside float yolov1's. Returns the int8 params and the
-    kernel's numbers at the first conv."""
+    direct kernel's numbers at the first conv, both entries."""
     from yolo_tensorflow_tpu_torch import config as C
     from yolo_tensorflow_tpu_torch.io import weights as W
     from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.ops import quant as Q
-    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
     from yolo_tensorflow_tpu_torch.pipeline import Detector
     from yolo_tensorflow_tpu_torch.post import nms as NMS
     cfg = C.get_config("yolov1")
@@ -2918,38 +3078,9 @@ def int8_k7_phase(dev, kind, smi, v1_path):
           f"int8-in one): equal to the plain twins, 0 ulp; (instance, BN) "
           f"taken: {dict(used)}")
 
-    x, w_q, s_x, s_w, b = k7_case(gen, dev, SERVE_BATCH, 2, 64, size, False,
-                                  torch.bfloat16)
-    kw = dict(stride=2, act="leaky")
-    ms = cuda_ms(lambda: Q8.conv2d_int8(x, w_q, s_x, s_w, b,
-                                        epilogue_dtype=torch.bfloat16, **kw),
-                 iters=10)
-    quant = cuda_ms(lambda: Q8.quantize_act(x, s_x), iters=10)
-    plain = cuda_ms(lambda: Q8.conv2d_int8_plain(
-        x, w_q, s_x, s_w, b, epilogue_dtype=torch.bfloat16, **kw), iters=1,
-        warmup=1)
-    nbytes, ops = int8_cost(SERVE_BATCH, 7, 2, 3, 64, size, 2, 2)
-    bnd, by = bound_ms(nbytes, ops, INT8_OPS_S)
-    xq = Q8.quantize_act(x, s_x)
-    q_ms = cuda_ms(lambda: Q8.conv2d_int8_q(xq, s_x, w_q, s_w, b, s_out=0.9,
-                                            **kw), iters=10)
-    q_plain = cuda_ms(lambda: Q8.conv2d_int8_q_plain(
-        xq, s_x, w_q, s_w, b, s_out=0.9, **kw), iters=1, warmup=1)
-    q_bytes, _ = int8_cost(SERVE_BATCH, 7, 2, 3, 64, size, 1, 1)
-    q_bnd, q_by = bound_ms(q_bytes, ops, INT8_OPS_S)
-    wf = torch.randn((64, 3, 7, 7), generator=gen, device=dev,
-                     dtype=torch.bfloat16).contiguous(
-                         memory_format=torch.channels_last)
-    cudnn = cuda_ms(lambda: F.conv2d(x, wf, stride=2, padding=3), iters=10)
-    print(f"[23 int8 k7] B={SERVE_BATCH} bf16 7x7 s2 3->64 at {size}^2: "
-          f"{Q8.plan(x, w_q)}, kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
-          f"TOPS) of which the quantize pass alone {quant:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.0f} MB, {ops / 1e9:.1f} G "
-          f"int8 ops), plain {plain:.3f} ms; the int8-in entry (int8 in and "
-          f"out) {q_ms:.4f} ms, bound {q_bnd:.4f} ms ({q_by}), plain "
-          f"{q_plain:.3f} ms; cuDNN bf16 conv {cudnn:.4f} ms (context: not "
-          f"the same function); on {smi}")
-    del x, w_q, xq, wf
+    direct_odd_check("23 int8 k7 direct", dev, (7,))
+    k7_fields = [direct_times("23 int8 k7", 7, 2, 64, size, entry, dev, smi,
+                              parent) for entry in (0, 1)]
 
     folded, _ = W.load_darknet_weights(specs, size, v1_path)
     rng = np.random.default_rng(SEED + 23)
@@ -2970,7 +3101,7 @@ def int8_k7_phase(dev, kind, smi, v1_path):
     gpu.detect_batch(x2)                   # warm-up, outside the count
     got = NMS.fetch_detections(counted_forward(
         "23 int8 yolov1 f32", lambda: gpu.detect_batch(x2), int8=n_int8,
-        decode=0, nms=1))
+        int8_direct=1, decode=0, nms=1))
     cpu = Detector("yolov1", params=qparams, device="cpu",
                    conf_threshold=conf)
     t0 = time.perf_counter()
@@ -3000,13 +3131,13 @@ def int8_k7_phase(dev, kind, smi, v1_path):
         if label == "int8":
             counted_forward("23 int8 yolov1 bf16",
                             lambda: det.detect_batch(x), int8=n_int8,
-                            decode=0, nms=1)
+                            int8_direct=1, decode=0, nms=1)
         del det
     print(f"[23 int8 yolov1 bf16] detect_batch B={SERVE_BATCH} at {size}: "
           + "; ".join(f"{k} {v[0]:.1f} img/s (spread {v[1]:.1f}..{v[2]:.1f},"
                       f" step {v[3]:.2f} ms)" for k, v in rates.items())
           + f"; on {smi}")
-    return qparams, dict(ms=ms, bound_ms=bnd, plain_ms=plain)
+    return qparams, k7_fields
 
 
 def device_busy(prof, path):
@@ -4483,7 +4614,14 @@ def stream_phase(cfg, path, tmp, smi):
     del det
 
 
-def main():
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch port's main paths on one GPU.")
+    parser.add_argument("--parent", default=None, help=(
+        "an earlier checkout (git archive) whose direct int8 kernel is "
+        "timed in turns with this one"))
+    parent = parser.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4502,6 +4640,7 @@ def main():
     from yolo_tensorflow_tpu_torch.ops import quant as Q
     from yolo_tensorflow_tpu_torch.ops.kernels import build
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
+    from yolo_tensorflow_tpu_torch.ops.kernels import direct_probe as DP
     from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
     from yolo_tensorflow_tpu_torch.pipeline import Detector
     from yolo_tensorflow_tpu_torch.post import nms as NMS
@@ -4517,13 +4656,21 @@ def main():
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
     dev = torch.device("cuda", 0)
 
-    # 2. build
+    # 2. build (the parent's first-conv kernel beside, where --parent gave
+    # a checkout)
     t0 = time.perf_counter()
+    parent_job = (None if parent is None else DP.start_build(
+        "parent", os.path.join(parent, "yolo_tensorflow_tpu_torch", "csrc")))
     lib_path = build.build(force=True)
     build_s = time.perf_counter() - t0
     build.load()
+    parent_lib = (None if parent_job is None else
+                  DP.finish_build(parent_job))
     print(f"[2 build] nvcc built {[s.name for s in build.sources()]} -> "
-          f"{lib_path.name} in {build_s:.2f} s")
+          f"{lib_path.name} in {build_s:.2f} s"
+          + ("" if parent is None else
+             f"; the parent's conv_int8.cu from {parent} in "
+             f"{time.perf_counter() - t0:.2f} s"))
 
     # 3. decode kernel vs plain at the v3 and region head shapes
     cfg = C.get_config(MODEL)
@@ -4590,12 +4737,14 @@ def main():
 
         # 6. int8 conv kernel vs plain, at the shapes the int8 path runs
         convs = {i for i, sp in enumerate(specs) if isinstance(sp, S.Conv)}
-        int8_fields = int8_kernel_phase(
-            int8_shapes(specs, cfg, convs - Q.head_conv_layers(specs)), dev)
+        int8_fields, direct_fields = int8_kernel_phase(
+            int8_shapes(specs, cfg, convs - Q.head_conv_layers(specs)), dev,
+            smi, parent_lib)
 
         # 7. the int8 main path
-        int8_launches, qparams, calib, int8_rate, int8_net_ms = \
-            int8_path_phase(specs, cfg, path, imgs, x, dev, float_rate, kind)
+        (int8_launches, direct_launches, qparams, calib, int8_rate,
+         int8_net_ms) = int8_path_phase(specs, cfg, path, imgs, x, dev,
+                                        float_rate, kind)
         del x
 
         # 8. conv_bnstat kernel vs plain, at the shapes training runs
@@ -4645,7 +4794,8 @@ def main():
         q_launches, q_fields = int8_act_phase(
             specs, cfg, path, int8_shapes(
                 specs, cfg, convs - Q.head_conv_layers(specs)),
-            qparams, calib, imgs, dev, int8_rate, int8_net_ms, kind, smi)
+            qparams, calib, imgs, dev, int8_rate, int8_net_ms, kind, smi,
+            parent_lib)
         del calib
 
         # 19-22. training of the region, grid and classifier families:
@@ -4670,7 +4820,7 @@ def main():
 
         # 23. the int8 kernel at yolov1's 7x7 first conv; int8 yolov1;
         # int8 convs of any geometry
-        v1_qparams, _ = int8_k7_phase(dev, kind, smi, v1_path)
+        v1_qparams, _ = int8_k7_phase(dev, kind, smi, v1_path, parent_lib)
         int8_geometry_phase(dev, kind, smi)
 
         # 24-26. evaluation, the classifier, in-training evaluation
@@ -4705,6 +4855,10 @@ def main():
         "source": "yolo_tensorflow_tpu_torch/csrc/conv_int8.cu",
         "replaces": "tools/probe_int8_3x3.py:35",
         "launches": q_launches, **q_fields}, {
+        "name": "conv_int8_direct", "route": "cuda",
+        "source": "yolo_tensorflow_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "tools/probe_int8_3x3.py:35",
+        "launches": direct_launches, **direct_fields}, {
         "name": "conv3x3_bnstat", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/conv_bnstat.cu",
         "replaces": "tools/probe_conv_bnstat.py:47",

@@ -9,7 +9,8 @@ tests/test_torch_quant.py and tests/test_torch_int8act.py:
 - ``conv2d_int8`` (mixed entry) against the jitted JAX ``conv2d_int8`` (+
   leaky): bfloat16 exactly, float32 within 1 ulp.
 - ``conv2d_int8_q`` (int8-in entry) against JAX's apply_int8 formula for
-  one layer: int8 and float32 outputs equal.
+  one layer: int8 and float32 outputs equal; also at first convs (Cin 3)
+  on the direct kernel's tile edges (``torch_parity.DIRECT_EDGES``).
 - The narrow net ``narrow-geom`` written as a darknet .cfg and read back by
   each package's ``config_from_cfg``, its params quantized by the JAX
   package: the mixed int8 Detector and the all-int8-activation forward give
@@ -37,7 +38,7 @@ from yolo_tensorflow_tpu_torch.models import specs as TS
 from yolo_tensorflow_tpu_torch.ops import quant as TQ
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as K
 
-from torch_parity import folded_params, images, model, to_jax
+from torch_parity import DIRECT_EDGES, folded_params, images, model, to_jax
 
 SIZE = 64
 PARITY = dict(rtol=1e-4, atol=1e-5)
@@ -159,6 +160,41 @@ def test_conv2d_int8_q_any_geometry_matches_jax(k, stride, pad, act, out,
         memory_format=torch.channels_last), s_in, _oihw(w),
         torch.from_numpy(s_w), torch.from_numpy(b), stride=stride, pad=pad,
         act=act, s_out=s_out)
+    assert K.launches_q == before
+    assert got.dtype == (torch.int8 if s_out else torch.float32)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("out", ["int8", "float32"])
+@pytest.mark.parametrize("k,stride,pad,cout,h,w", DIRECT_EDGES)
+def test_first_conv_q_tile_edges_match_jax(k, stride, pad, cout, h, w, out,
+                                           rng):
+    """The int8-in entry at first convs on the direct kernel's tile edges
+    (H, W off its 8 x 32 output tile times the stride, B = 3), leaky,
+    against JAX's apply_int8 formula for one layer: equal, as above."""
+    xq = rng.integers(-127, 128, (3, h, w, 3)).astype(np.int8)
+    wq = rng.integers(-127, 128, (k, k, 3, cout)).astype(np.int8)
+    s_w = (rng.uniform(0.5, 1.5, cout) / 127).astype(np.float32)
+    b = rng.standard_normal(cout).astype(np.float32)
+    s_in, s_out = 0.0123, (0.0377 if out == "int8" else None)
+
+    def jax_fn(xq, wq, s_w, b):
+        acc = lax.conv_general_dilated(
+            xq, wq, (stride, stride), ((pad, pad), (pad, pad)),
+            dimension_numbers=("NHWC", "HWIO", "NHWC"),
+            preferred_element_type=jnp.int32)
+        y = JL.leaky_relu(acc.astype(jnp.float32) * (s_in * s_w) + b)
+        return y if s_out is None else JQ._requant(y, s_out)
+
+    want = np.asarray(jax.jit(jax_fn)(xq, wq, s_w, b))
+    xt = _nchw(xq).contiguous(memory_format=torch.channels_last)
+    # int8 out takes the direct kernel where Cout fills 16-byte stores
+    assert (K.plan_q(xt, _oihw(wq), out == "int8")[0] == "direct") == (
+        out == "float32" or cout % 16 == 0)
+    before = K.launches_q
+    got = K.conv2d_int8_q(xt, s_in, _oihw(wq), torch.from_numpy(s_w),
+                          torch.from_numpy(b), stride=stride, pad=pad,
+                          act="leaky", s_out=s_out)
     assert K.launches_q == before
     assert got.dtype == (torch.int8 if s_out else torch.float32)
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)

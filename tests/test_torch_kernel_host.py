@@ -13,6 +13,11 @@ chip_smoke.py (phases 3, 6, 8 and 14).
   ``int8_accumulate(quantize_act_plain(x))``, exactly.
 - ``igemm.pick_instance`` / ``pick_bn`` over every conv of yolov3-416, and
   the odd cases that must take the element-by-element instance.
+- ``conv_int8.direct_plan``, the direct first-conv kernel's tile plan: the
+  constants it copies from ``csrc/conv_int8.cu``, 227 KB of shared memory
+  at every geometry ``pick_instance`` routes to it, and ``gather`` for a
+  stride whose plan would pass that; ``direct_probe``'s markers in the
+  source.
 - ``decode.plan_tiles`` over the heads the port serves and odd ones: tile
   counts, first-tile indices, 16-byte alignment of every tile, the shared-
   memory budget; the limits the wrapper copies from ``csrc/decode.cu``.
@@ -40,6 +45,7 @@ from yolo_tensorflow_tpu_torch.ops.kernels import build
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as K
 from yolo_tensorflow_tpu_torch.ops.kernels import decode as DK
+from yolo_tensorflow_tpu_torch.ops.kernels import direct_probe as DP
 from yolo_tensorflow_tpu_torch.ops.kernels import igemm
 from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
 
@@ -259,6 +265,114 @@ def test_ctypes_signature_matches_the_c_definition(name):
             assert ctype is build.ctypes.c_longlong
         else:
             assert param.startswith("int ") and ctype is build.INT
+
+
+# ------------------------------------------- the direct first-conv kernel
+
+def _cu_const(name, source="conv_int8.cu"):
+    text = (build.CSRC_DIR / source).read_text()
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+    return eval(expr, {"__builtins__": {}})
+
+
+def test_direct_limits_match_the_source():
+    """The wrapper's copies of the direct kernel's tile plan in
+    csrc/conv_int8.cu, and the Cout tiles of its instances."""
+    assert K.DIRECT_TH == _cu_const("kDirectTH")
+    assert K.DIRECT_TW == _cu_const("kDirectTW")
+    assert K.DIRECT_TAPS_PER_STEP == _cu_const("kTapsPerStep")
+    assert K.DIRECT_W_BANK == _cu_const("kDirectWBank")
+    assert K.DIRECT_Y_PAD == _cu_const("kDirectYPad")
+    assert K.MAX_SHARED_BYTES == _cu_const("kMaxSharedBytes")
+    assert igemm.DIRECT_MAX_COUT == {3: _cu_const("kDirectN3"),
+                                     7: _cu_const("kDirectN7")}
+    # one warp a row of the tile, in whole m16 tiles
+    assert K.DIRECT_TW % 16 == 0 and 32 * K.DIRECT_TH <= 1024
+
+
+@pytest.mark.parametrize("out_bytes", [4, 2, 1])
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("k", [3, 7])
+def test_direct_plan_fits(k, stride, out_bytes):
+    """Every first conv that pick_instance routes to the direct kernel
+    (k 3 and 7, stride 1-3, padding 0..k-1, Cout from 8 to the instance's
+    most in whole 16-byte chunks of the output; f32, bf16 or int8 out):
+    the halo patch covers the tile's taps, K fills whole k32 steps, the grid covers the output, and a CTA's shared memory
+    stays within 227 KB."""
+    chunk = 16 if out_bytes == 1 else 8
+    most = igemm.DIRECT_MAX_COUT[k]
+    h, w = 45, 70
+    for pad in range(k):
+        for cout in range(chunk, most + 1, chunk):
+            assert igemm.pick_instance(3, cout, k, 1, True,
+                                       out_chunk=chunk) == "direct"
+            bn = igemm.pick_bn(cout, 1)
+            plan = K.direct_plan(h, w, k, stride, pad, bn, out_bytes)
+            assert cout <= plan.n_tile == bn <= most
+            assert plan.patch_h == (plan.th - 1) * stride + k
+            assert plan.patch_w == (plan.tw - 1) * stride + k
+            # K: (ky, kx, c) bytes at k = 3, taps of (c, 0) words at 7
+            assert plan.k_bytes == k * k * (3 if k == 3 else 4)
+            assert (plan.k_steps - 1) * 32 < plan.k_bytes <= plan.k_steps * 32
+            ho = (h + 2 * pad - k) // stride + 1
+            wo = (w + 2 * pad - k) // stride + 1
+            assert (plan.tiles_h - 1) * plan.th < ho <= plan.tiles_h * plan.th
+            assert (plan.tiles_w - 1) * plan.tw < wo <= plan.tiles_w * plan.tw
+            assert plan.shared_bytes <= K.MAX_SHARED_BYTES == 227 * 1024
+            assert plan.shared_bytes % 16 == 0
+
+
+@pytest.mark.parametrize("ablation", sorted(DP.ABLATIONS))
+def test_direct_probe_copies_alter_the_source(ablation):
+    """Each altered copy that ops/kernels/direct_probe.py times finds each
+    of its markers in csrc/conv_int8.cu and puts its text in their place;
+    every marker in the source belongs to some copy."""
+    source = (build.CSRC_DIR / "conv_int8.cu").read_text()
+    text = DP.patched_source(ablation)
+    for name, new in DP.ABLATIONS[ablation].items():
+        assert DP.marker(name) in source and DP.marker(name) not in text
+        assert all(line.strip() in text for line in new.split("\n"))
+    used = {name for a in DP.ABLATIONS.values() for name in a}
+    assert set(re.findall(r"// \[probe:([^\]]+)\]", source)) == used
+
+
+# a first conv at a stride whose direct plan passes 227 KB of shared
+# memory takes gather: (k, stride, entry's output dtype, instance)
+FIT_CASES = [(7, 8, torch.float32, "direct"), (7, 9, torch.float32, "gather"),
+             (7, 9, torch.bfloat16, "direct"),
+             (7, 10, torch.bfloat16, "gather"), (7, 10, torch.int8, "direct"),
+             (7, 11, torch.int8, "gather"), (3, 10, torch.float32, "direct"),
+             (3, 11, torch.bfloat16, "gather"), (3, 11, torch.int8, "gather")]
+
+
+@pytest.mark.parametrize("k,stride,out,want", FIT_CASES)
+def test_direct_plan_past_the_shared_memory_limit_takes_gather(k, stride,
+                                                               out, want):
+    cout = igemm.DIRECT_MAX_COUT[k]
+    x = torch.zeros((1, 3, 200, 200)).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.zeros((cout, 3, k, k), dtype=torch.int8).contiguous(
+        memory_format=torch.channels_last)
+    if out == torch.int8:
+        got = K.plan_q(x.to(torch.int8), w, True, stride)
+    else:
+        got = K.plan(x.to(out), w, stride, out)
+        # the int8-in entry's float32 out: the same shared memory as f32
+        if out == torch.float32:
+            assert K.plan_q(x.to(torch.int8), w, False, stride) == got
+    assert got == (want, cout)
+    if want == "direct":
+        assert K.direct_plan(200, 200, k, stride, k // 2, cout,
+                             out.itemsize).shared_bytes <= K.MAX_SHARED_BYTES
+    else:
+        with pytest.raises(ValueError):
+            K.direct_plan(200, 200, k, stride, k // 2, cout, out.itemsize)
+
+
+@pytest.mark.parametrize("k,stride", [(7, 13), (3, 30)])
+def test_direct_plan_raises_past_the_shared_memory_limit(k, stride):
+    with pytest.raises(ValueError, match=f"more than the {227 * 1024}"):
+        K.direct_plan(448, 448, k, stride, k // 2, 64 if k == 7 else 32, 4)
 
 
 # ------------------------------------------------------- the decode kernel

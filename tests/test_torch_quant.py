@@ -12,7 +12,9 @@ package's ops/quant.py, on the same numpy parameters and inputs.
   1 ulp in float32 (both round the epilogue as one fma; the bound stays
   1 ulp) and exactly in bfloat16; at yolov1's 7x7 stride-2 first conv
   (narrow_v1_spec's, its params quantized by the JAX package) exactly in
-  float32 too.
+  float32 too; at first convs (Cin 3, 3x3 and 7x7) on the direct kernel's
+  tile edges (``torch_parity.DIRECT_EDGES``: H and W off its output tile
+  times the stride, B = 3) as the other cases.
 - The narrow int8 v1 Detector (the 7x7 conv quantized with the rest, the
   connected head float) gives the JAX Detector's num, classes and valid,
   boxes and scores at rtol 1e-4 / atol 1e-5; a quantized logistic conv
@@ -40,7 +42,8 @@ from yolo_tensorflow_tpu_torch.io import weights as TW
 from yolo_tensorflow_tpu_torch.ops import quant as TQ
 from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as K
 
-from torch_parity import folded_params, images, jax_model, model, to_jax
+from torch_parity import (DIRECT_EDGES, folded_params, images, jax_model,
+                          model, to_jax)
 
 SIZE = 64
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -189,6 +192,44 @@ def test_conv2d_int8_matches_jax(k, stride, cin, dtype, act, rng):
     assert K.launches == before
     assert got.dtype == tdt
     assert got.is_contiguous(memory_format=torch.channels_last)
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    assert got.shape == want.shape
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert _ulps(got, want).max() <= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,stride,pad,cout,h,w", DIRECT_EDGES)
+def test_first_conv_tile_edges_match_jax(k, stride, pad, cout, h, w, dtype,
+                                         rng):
+    """First convs at the direct kernel's tile edges (H, W off its 8 x 32
+    output tile times the stride, B = 3), leaky, against the jitted JAX
+    conv2d_int8: bfloat16 exactly, float32 within 1 ulp, as above."""
+    tdt, jdt = DTYPES[dtype]
+    x = jnp.asarray(rng.standard_normal((3, h, w, 3), dtype=np.float32)
+                    * 2).astype(jdt)
+    wq = rng.integers(-127, 128, (k, k, 3, cout)).astype(np.int8)
+    s_w = (rng.uniform(0.5, 1.5, cout) / 127).astype(np.float32)
+    s_x = np.float32(0.031)
+    b = rng.standard_normal(cout).astype(np.float32)
+
+    def jax_fn(x, wq, s_w, b):
+        return JL.leaky_relu(JQ.conv2d_int8(x, wq, s_x, s_w, b,
+                                            stride=stride, pad=pad,
+                                            epilogue_dtype=jdt))
+
+    want = np.asarray(jax.jit(jax_fn)(x, jnp.asarray(wq), jnp.asarray(s_w),
+                                      jnp.asarray(b)).astype(jnp.float32))
+    xt = _nchw(np.asarray(x.astype(jnp.float32))).to(tdt).contiguous(
+        memory_format=torch.channels_last)
+    assert K.plan(xt, _oihw(wq))[0] == "direct"
+    before = K.launches
+    got = K.conv2d_int8(xt, _oihw(wq), s_x, torch.from_numpy(s_w),
+                        torch.from_numpy(b), stride=stride, pad=pad,
+                        act="leaky", epilogue_dtype=tdt)
+    assert K.launches == before
     got = got.permute(0, 2, 3, 1).float().numpy()
     assert got.shape == want.shape
     if dtype == "bfloat16":

@@ -260,3 +260,14 @@ def batch_invariant_conv():
     state carried across batches) run under it, so that they hold the
     batching and not the backend's algorithm."""
     return torch.backends.mkldnn.flags(enabled=False)
+
+
+# First convs (Cin = 3) at the direct int8 kernel's tile edges, (k, stride,
+# pad, Cout, H, W): H and W off every multiple of the kernel's output tile
+# (8 rows x 32 columns, ops/kernels/conv_int8.direct_plan) times the
+# stride, Cout 8, 24 and 48, stride 3 and padding 0; held to the JAX
+# package at batch 3 by tests/test_torch_quant.py (the f32/bf16-in entry)
+# and tests/test_torch_int8_geometry.py (the int8-in entry)
+DIRECT_EDGES = [(3, 1, 1, 8, 37, 45), (3, 2, 1, 24, 29, 70),
+                (3, 3, 0, 16, 23, 101), (7, 2, 3, 48, 47, 66),
+                (7, 1, 0, 8, 15, 40), (7, 3, 2, 24, 30, 100)]

@@ -8,11 +8,13 @@ XLA emitted that conv; tools/probe_int8_3x3.py holds three Pallas versions
 of its accumulator. The kernels are in ``csrc/conv_int8.cu`` (its header
 says what bounds them and how they are laid out): a quantize pass into an
 int8 scratch tensor, then the wgmma implicit GEMM with the fused epilogue;
-the first conv (Cin = 3, 3x3 or 7x7) takes a direct kernel instead, after
-the quantize pass at 7x7. The implicit GEMM takes any square k, stride and
-padding (darknet's k // 2, 0, or any other), as the TPU package's lax conv
-does. PyTorch has no int8 convolution on CUDA, so there is no library call
-that computes this.
+the first conv (Cin = 3, 3x3 or 7x7) takes the direct kernel instead,
+which quantizes each input element once in shared memory (no pass, no
+scratch) and runs mma.sync on the int8 tensor cores (``direct_plan`` is
+its tile plan). The implicit GEMM takes any square k, stride and padding
+(darknet's k // 2, 0, or any other), as the TPU package's lax conv does.
+PyTorch has no int8 convolution on CUDA, so there is no library call that
+computes this.
 
 Layouts are the port's: x is NCHW in channels-last memory (the NHWC bytes),
 w_q is OIHW int8 in channels-last memory (the (Cout, kh, kw, Cin) bytes the
@@ -29,12 +31,15 @@ The wrappers call the operators ``yolo_torch::quantize_act``,
 implementation is picked by the device of the input: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version, a fake one
 (under ``torch.export``) gives the output's shape, dtype and strides.
-``launches`` counts kernel launches and nothing else.
+``launches`` and ``launches_q`` count kernel launches and nothing else;
+``launches_direct`` counts those of either entry that went to the direct
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,6 +50,83 @@ from yolo_tensorflow_tpu_torch.ops.kernels import build, igemm, library
 
 launches = 0
 launches_q = 0
+launches_direct = 0
+
+# The direct kernel's tile plan, copied from csrc/conv_int8.cu (kDirectTH,
+# kDirectTW, kTapsPerStep, kDirectWBank, kDirectYPad, kMaxSharedBytes;
+# tests/test_torch_kernel_host.py holds them equal)
+DIRECT_TH = 8             # output rows a CTA, one warp each
+DIRECT_TW = 32            # output columns a CTA: two m16 tiles a warp
+DIRECT_TAPS_PER_STEP = 8  # taps of 4 bytes (R, G, B, 0) in one k32 step
+DIRECT_W_BANK = 24        # a weight row's pitch, mod 32 words
+DIRECT_Y_PAD = 16         # bytes past a staged output pixel
+MAX_SHARED_BYTES = 227 * 1024
+
+
+class DirectPlan(NamedTuple):
+    """One launch of the direct kernel: the CTA's output tile (th x tw),
+    its input patch (patch_h x patch_w pixels, a word each, two buffers of
+    it in shared memory), K in bytes (k * k * 3 packed at k = 3, k * k
+    taps x 4 bytes at 7) and its k32 steps, the Cout tile, the grid
+    (tiles_h x tiles_w tiles an image) and the dynamic shared memory of a
+    CTA."""
+    th: int
+    tw: int
+    patch_h: int
+    patch_w: int
+    k_bytes: int
+    k_steps: int
+    n_tile: int
+    tiles_h: int
+    tiles_w: int
+    shared_bytes: int
+
+
+def _direct_k(k: int):
+    """(K bytes, k32 steps, weight pitch in words) of the direct kernel:
+    (ky, kx, c) bytes packed at 3x3, (tap, c) words with c padded to 4 at
+    7x7."""
+    packed = k == 3
+    k_bytes = k * k * (3 if packed else 4)
+    k_steps = -(-k_bytes // 32)
+    taps = k_steps * DIRECT_TAPS_PER_STEP
+    return (k_bytes, k_steps,
+            taps if packed else taps + (DIRECT_W_BANK - taps) % 32)
+
+
+def direct_shared_bytes(k: int, stride: int, n_tile: int,
+                        out_bytes: int) -> int:
+    """Dynamic shared memory of a direct-kernel CTA: the weights, scales
+    and biases, the staged output tile, two buffers of the input patch."""
+    patch = ((DIRECT_TH - 1) * stride + k) * ((DIRECT_TW - 1) * stride + k)
+    return (4 * n_tile * _direct_k(k)[2] + 8 * n_tile
+            + DIRECT_TH * DIRECT_TW * (n_tile * out_bytes + DIRECT_Y_PAD)
+            + 2 * -(-patch * 4 // 16) * 16)
+
+
+def direct_plan(h: int, w: int, k: int, stride: int, pad: int, n_tile: int,
+                out_bytes: int) -> DirectPlan:
+    """The direct kernel's plan for a (h, w) input, a k x k conv at
+    ``stride`` and ``pad``, Cout tile ``n_tile`` (its instance's N: 32, or
+    64 at 7x7) and ``out_bytes`` a output element. Raises ValueError where
+    the CTA's shared memory would pass 227 KB (a stride whose input patch
+    does not fit: ``plan`` sends such a conv to ``gather``, and the
+    kernel's entry refuses it)."""
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    k_bytes, k_steps, _ = _direct_k(k)
+    patch_h = (DIRECT_TH - 1) * stride + k
+    patch_w = (DIRECT_TW - 1) * stride + k
+    shared = direct_shared_bytes(k, stride, n_tile, out_bytes)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the direct int8 kernel at {k}x{k} stride {stride} needs "
+            f"{shared} bytes of shared memory a CTA, more than the "
+            f"{MAX_SHARED_BYTES} a CTA has")
+    return DirectPlan(DIRECT_TH, DIRECT_TW, patch_h, patch_w, k_bytes,
+                      k_steps, n_tile, -(-ho // DIRECT_TH),
+                      -(-wo // DIRECT_TW), shared)
+
 
 ACTIVATIONS = ("linear", "leaky")
 EPILOGUE_DTYPES = (torch.float32, torch.bfloat16)
@@ -227,32 +309,49 @@ def conv2d_int8(x, w_q, s_x, s_w, b, *, stride: int = 1, pad: int = None,
                    act == "leaky", epilogue_dtype)
 
 
-def plan(x, w_q):
-    """(instance, BN) of the kernel that a CUDA x and w_q launch: the wgmma
-    main loop fed by cp.async (``wgmma``) or element by element
-    (``gather``), both after the quantize pass, or the direct first-conv
-    kernel (after the pass at 7x7, where BN is its Cout tile). The pass
-    writes an aligned scratch tensor, so of the operands only the weights'
-    alignment matters."""
+def _fit(instance, k, stride, bn, out_bytes):
+    """``instance``, except a first conv whose direct plan would pass a
+    CTA's shared memory (7x7 from stride 9 with float32 out, 3x3 from
+    stride 11: the input patch grows with the stride), which takes
+    ``gather``: that one takes any geometry."""
+    if (instance == "direct" and direct_shared_bytes(k, stride, bn, out_bytes)
+            > MAX_SHARED_BYTES):
+        return "gather"
+    return instance
+
+
+def plan(x, w_q, stride: int = 1, epilogue_dtype=torch.float32):
+    """(instance, BN) of the kernel that a CUDA x and w_q launch at
+    ``stride`` into ``epilogue_dtype``: the wgmma main loop fed by cp.async
+    (``wgmma``) or element by element (``gather``), both after the quantize
+    pass, or the direct first-conv kernel (``direct``, no pass; BN is its
+    Cout tile, N of its instance). The pass writes an aligned scratch
+    tensor, so of the operands only the weights' alignment matters."""
     cout, cin, k = w_q.shape[0], w_q.shape[1], w_q.shape[-1]
-    return (igemm.pick_instance(cin, cout, k, 1, w_q.data_ptr() % 16 == 0),
-            igemm.pick_bn(cout, 1))
+    bn = igemm.pick_bn(cout, 1)
+    instance = igemm.pick_instance(cin, cout, k, 1, w_q.data_ptr() % 16 == 0)
+    return (_fit(instance, k, stride, bn, epilogue_dtype.itemsize), bn)
 
 
-def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype):
-    global launches
+def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype,
+            lib=None):
+    """The kernel's launch. ``lib``: another build of csrc/conv_int8.cu
+    (ops/kernels/direct_probe.py's), given a scratch tensor whatever the
+    instance (an earlier checkout's 7x7 direct kernel took one)."""
+    global launches, launches_direct
     batch, cin, h, w = x.shape
     cout, k = w_q.shape[0], w_q.shape[-1]
     y = torch.empty(_out_shape(x, w_q, stride, pad), dtype=epilogue_dtype,
                     device=x.device, memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    instance, bn = plan(x, w_q)
-    # the quantize pass's output, the GEMM's A operand (NHWC int8); the 3x3
-    # direct kernel quantizes in registers and takes none
-    xq = (None if instance == "direct" and k == 3 else
+    instance, bn = plan(x, w_q, stride, epilogue_dtype)
+    direct = instance == "direct"
+    # the quantize pass's output, the GEMM's A operand (NHWC int8); the
+    # direct kernel quantizes in shared memory and takes none
+    xq = (None if direct and lib is None else
           torch.empty(x.numel(), dtype=torch.int8, device=x.device))
-    lib = build.load()
+    lib = lib or build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.yolo_conv2d_int8(
@@ -266,6 +365,7 @@ def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype):
         raise RuntimeError(f"int8 conv kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    launches_direct += direct
     return y
 
 
@@ -362,18 +462,21 @@ def conv2d_int8_q(xq, s_in, w_q, s_w, b, *, stride: int = 1,
                      None if s_out is None else float(s_out))
 
 
-def plan_q(xq, w_q, int8_out: bool = True):
-    """(instance, BN) of the kernel that ``conv2d_int8_q`` launches: with no
-    quantize pass and no scratch, the input's alignment counts too."""
+def plan_q(xq, w_q, int8_out: bool = True, stride: int = 1):
+    """(instance, BN) of the kernel that ``conv2d_int8_q`` launches at
+    ``stride``: with no quantize pass and no scratch, the input's alignment
+    counts too."""
     cout, cin, k = w_q.shape[0], w_q.shape[1], w_q.shape[-1]
     aligned = w_q.data_ptr() % 16 == 0 and xq.data_ptr() % 16 == 0
-    return (igemm.pick_instance(cin, cout, k, 1, aligned,
-                                out_chunk=16 if int8_out else 8),
-            igemm.pick_bn(cout, 1))
+    bn = igemm.pick_bn(cout, 1)
+    instance = igemm.pick_instance(cin, cout, k, 1, aligned,
+                                   out_chunk=16 if int8_out else 8)
+    return (_fit(instance, k, stride, bn, 1 if int8_out else 4), bn)
 
 
-def _launch_q(xq, s_in, w_q, s_w, b, stride, pad, act, s_out):
-    global launches_q
+def _launch_q(xq, s_in, w_q, s_w, b, stride, pad, act, s_out, lib=None):
+    """The kernel's launch; ``lib`` as ``_launch``'s."""
+    global launches_q, launches_direct
     batch, cin, h, w = xq.shape
     cout, k = w_q.shape[0], w_q.shape[-1]
     int8_out = s_out is not None
@@ -382,10 +485,11 @@ def _launch_q(xq, s_in, w_q, s_w, b, stride, pad, act, s_out):
                     device=xq.device, memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    instance, bn = plan_q(xq, w_q, int8_out)
+    instance, bn = plan_q(xq, w_q, int8_out, stride)
+    direct = instance == "direct"
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = build.load().yolo_conv2d_int8_q(
+        err = (lib or build.load()).yolo_conv2d_int8_q(
             xq.data_ptr(), w_q.data_ptr(), s_in, s_w.data_ptr(),
             b.data_ptr(), y.data_ptr(), int(int8_out),
             inv_scale(s_out) if int8_out else 0.0, batch, h, w, cin, cout,
@@ -395,4 +499,5 @@ def _launch_q(xq, s_in, w_q, s_w, b, stride, pad, act, s_out):
         raise RuntimeError(f"int8-in conv kernel launch failed: CUDA error "
                            f"{err}")
     launches_q += 1
+    launches_direct += direct
     return y

@@ -1,5 +1,5 @@
-"""Host side of the implicit-GEMM convolutions' kernels: which kernel
-instance and which output-channel tile a conv takes.
+"""Host side of the convolutions' kernels: which kernel instance and which
+output-channel tile a conv takes.
 
 ``csrc/igemm_sm90.cuh`` computes 128 x BN output tiles (128 output pixels by
 BN output channels). BN is chosen here from Cout, so that a narrow conv does
@@ -13,8 +13,9 @@ from __future__ import annotations
 
 BM = 128                       # output pixels per CTA
 BN_TILES = (256, 128, 64, 32)  # output channels per CTA
-# the direct first-conv kernels (Cin = 3, no tensor cores): kernel size ->
-# the most output channels one takes
+# the direct first-conv kernel (Cin = 3; mma.sync on a tile of output
+# pixels, csrc/conv_int8.cu): kernel size -> the most output channels one
+# instance takes
 DIRECT_MAX_COUT = {3: 32, 7: 64}
 # instance names, and the codes the C entry points take
 INSTANCES = {"gather": 0, "wgmma": 1, "direct": 2}
@@ -38,8 +39,9 @@ def pick_instance(cin: int, cout: int, ksize: int, elem_bytes: int,
                   aligned: bool, out_chunk: int = 8) -> str:
     """``direct``: the first conv of a network (Cin = 3, 3x3 with Cout <=
     32 or 7x7 with Cout <= 64, in whole 16-byte stores: a multiple of
-    ``out_chunk``, 16 for int8 out), no tensor cores. ``wgmma``: the
-    cp.async ring,
+    ``out_chunk``, 16 for int8 out), its input staged a word (R, G, B, 0) a
+    pixel for mma.sync (``conv_int8.plan`` sends a stride whose input patch
+    would not fit its shared memory to ``gather``). ``wgmma``: the cp.async ring,
     which copies 16 bytes of one tap at a time, so a pixel's Cin elements
     (``elem_bytes`` each) must fill whole 16-byte chunks and the operands
     (``aligned``) must start on one. ``gather``: every other conv, the same

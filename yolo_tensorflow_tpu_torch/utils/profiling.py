@@ -59,3 +59,25 @@ def device_trace(log_dir: str):
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
+
+
+def cuda_ms(fn, iters=20, warmup=3, ahead_cycles=0):
+    """Mean device time of fn() in ms, from CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls. ``ahead_cycles``: the card
+    first spins that many clock cycles, so that the host has queued every
+    call before the first one runs. Without it a kernel that is shorter
+    than its wrapper's host time measures the host."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if ahead_cycles:
+        torch.cuda._sleep(ahead_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
