@@ -2,18 +2,19 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py          # from the repository root; needs one card
-    python3 chip_smoke.py --parent DIR   # also times DIR's direct int8 kernel
+    python3 chip_smoke.py --parent DIR   # also times DIR's kernels
 
 ``--parent DIR``: an earlier checkout of the repository (``git archive``),
-whose csrc/conv_int8.cu is built beside this one and its first-conv kernel
-timed in turns with this one's (phases 6, 18 and 23); without it those
-times print as "not measured".
+whose csrc/conv_int8.cu and csrc/nms.cu are built beside this one's: its
+first-conv kernel is timed in turns with this one's (phases 6, 18 and 23)
+and its NMS stage (phase 14); without it those times print as "not
+measured".
 
 Phases, one line or more each (a failed phase exits nonzero, and no phase's
 failure is caught):
   1. device: the card, as nvidia-smi reports its name and power limit;
   2. build:  nvcc builds the CUDA kernels (decode, int8 conv, fused conv +
-             BN statistics, greedy NMS; the two convs share
+             BN statistics, the NMS stage; the two convs share
              csrc/igemm_sm90.cuh) from
              yolo_tensorflow_tpu_torch/csrc, one nvcc process per source;
   3. kernel: the decode kernel against its plain PyTorch version on the same
@@ -90,12 +91,19 @@ failure is caught):
              grid decode in plain PyTorch: the TPU kernel does not cover it
              either), f32 batch 2 against the CPU port, then bf16 batch 64
              with the same split and the three dense layers' device times;
- 14. nms kernel: the greedy NMS kernel against its plain version on the
-             card, all five Detections fields exactly equal: at phase 5's
-             decode outputs (yolov3-416, batch 64, K = 256), class-aware off
-             and on, and at the odd cases of NMS_ODD and K = 9000; top-k and
-             kernel device ms, the bound, the plain version's and the former
-             per-image loop's host ms;
+ 14. nms kernel: the NMS stage, one kernel from the decode to the
+             Detections, against its plain version (stable sort, gathers,
+             the batched fixpoint) on the card, all five Detections fields
+             exactly equal: at the decodes of phases 5, 12 and 13
+             (yolov3-416, also in the bf16 scoring mode with its ties, and
+             yolov2-416 and yolov1-448, batch 64, K = 256), class-aware off
+             and on, yolov3-416 at batch 1 and 8 and at conf 0.05, and at
+             the odd cases of NMS_ODD (ties across the K-th, +-0.0, NaN,
+             A against K, N = 60000) and K = 9000; the device kernels of
+             one call from a torch.profiler trace (the NMS kernel alone);
+             at each main-path case the stage's device ms, in turns with
+             the parent's stage (with --parent), its bound and the plain
+             version's host ms;
  15. fused letterbox: Detector(letterbox=True, fused=True) on uint8
              canvases of mixed image sizes, f32 against the CPU port (boxes
              in pixels), then bf16 serving of VGA frames in 768 canvases at
@@ -248,6 +256,7 @@ Imports nothing of JAX: the machine with the card has none.
 import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -372,11 +381,15 @@ TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)
 GRAD_FLOOR = (4.0, 1e-4)
 SPIN = 20_000_000        # ~10 ms of the card: every launch is queued first
 # Odd NMS cases (phase 14; tests/test_torch_nms.py holds the plain version
-# to the JAX package on the same list): each with class-aware NMS off and
-# on, the kernel equal to the plain version in all five fields
+# to the JAX package on the first 13 and its transcription of the kernel on
+# the others but the last): each with class-aware NMS off and on, the
+# kernel equal to the plain version in all five fields. "N = 60000" runs
+# the kernel's other layout (keys read again each pass, candidates in
+# scratch), as K = NMS_BIG_K does.
 NMS_ODD = ("batch 1", "K > N", "D > K", "none active", "all active",
            "chain", "IoU at the threshold", "degenerate", "K = 8", "K = 64",
-           "K = 256", "K = 300", "K = 1024")
+           "K = 256", "K = 300", "K = 1024", "ties at the K-th", "+0 and -0",
+           "NaN and inf", "A < K", "A = K", "A > K", "N = 60000")
 NMS_ODD_KW = dict(conf_threshold=0.3, iou_threshold=0.45, max_detections=20,
                   num_candidates=64)
 NMS_BIG_K = 9000         # candidates near the most a CTA's shared memory holds
@@ -967,8 +980,8 @@ def int8_kernel_phase(shapes, dev, smi, parent):
 def step_split(det, x, cfg, conf):
     """Device ms of the parts of one serving forward of ``det`` on the
     uint8 images ``x``, from CUDA events with the host kept ahead of the
-    card for the short ones: (backbone, decode, NMS: candidate sort +
-    gathers + the kernel), and the decode's outputs."""
+    card for the short ones: (backbone, decode, NMS: the one kernel of the
+    stage), and the decode's outputs."""
     from yolo_tensorflow_tpu_torch.models import heads
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
     from yolo_tensorflow_tpu_torch.pipeline import normalize_images
@@ -2070,7 +2083,7 @@ def family_phases(name, numbers, dev, kind, smi, tmp):
             f"{name} bf16 detections empty or not finite")
     counted_forward(bf16, lambda: det.detect_batch(x),
                     decode=want_launches, nms=1)
-    net_ms, dec_ms, nms_ms, _ = step_split(det, x, cfg, conf)
+    net_ms, dec_ms, nms_ms, decoded = step_split(det, x, cfg, conf)
     how = "plain PyTorch" if cfg.head == 1 else "the kernel"
     with torch.inference_mode():
         # the layers this family adds, at the shapes the forward gives them
@@ -2098,19 +2111,18 @@ def family_phases(name, numbers, dev, kind, smi, tmp):
           f"on the card: {statistics.median(rates):.1f} img/s median of 3 x "
           f"5 steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
           f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode {dec_ms:.4f} ms "
-          f"({how}), NMS {nms_ms:.4f} ms (device: candidate sort + the "
-          f"kernel), the "
+          f"({how}), NMS {nms_ms:.4f} ms (device: one kernel), the "
           f"rest {step - net_ms - dec_ms - nms_ms:.2f} ms; "
           f"{'; '.join(extra)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean num "
           f"{out.num.mean():.1f}; on {smi}")
-    return launches, path
+    return launches, path, (decoded, conf)
 
 
 def nms_odd_case(name, rng, dev):
     """(boxes, scores, labels) on the card and the NMS options of one odd
-    case of NMS_ODD; scores distinct (tests/test_torch_nms.py builds the
-    same cases)."""
+    case of NMS_ODD; scores distinct but in the tie, +-0 and NaN cases
+    (tests/test_torch_nms.py builds the same cases)."""
     def random(batch=3, n=300):
         centers = rng.uniform(0.4, 0.6, (batch, n, 2))    # heavy overlap
         half = rng.uniform(0.05, 0.2, (batch, n, 2))
@@ -2154,6 +2166,35 @@ def nms_odd_case(name, rng, dev):
         b[:, 1::4, 3] = b[:, 1::4, 1]                  # zero height
         b[:, 2::4, [0, 2]] = b[:, 2::4, [2, 0]]        # inverted in x
         b[:, 3::8, :] = 0.0                            # a point at 0
+    elif name == "ties at the K-th":
+        # bf16-rounded scores: exact ties, across the K-th among them
+        b, s, c = random()
+        s = torch.from_numpy(rng.uniform(0.3, 0.9, s.shape).astype(
+            np.float32)).to(torch.bfloat16).float().numpy()
+    elif name == "+0 and -0":
+        # all active at conf -0.5; the K-th among many +-0.0 in any order
+        b, s, c = random()
+        s = rng.choice(np.float32([0.5, 0.25, 0.0, -0.0, -0.25]), s.shape,
+                       p=[0.05, 0.05, 0.3, 0.3, 0.3])
+        kw = dict(conf_threshold=-0.5)
+    elif name == "NaN and inf":
+        b, s, c = random()
+        s[:, ::7] = np.nan
+        s[:, 3::11] = np.inf
+        s[:, 5::13] = -np.inf
+        b[:, 1::17, 2] = np.nan                        # NaN and inf boxes
+        b[:, 2::19, 3] = np.inf
+    elif name in ("A < K", "A = K", "A > K"):
+        # K = 64 of 300, exactly 40, 64 or 100 active in each image
+        b, s, c = random()
+        a = {"A < K": 40, "A = K": 64, "A > K": 100}[name]
+        s = s * 0.29
+        for img in range(s.shape[0]):
+            on = rng.choice(s.shape[1], a, replace=False)
+            s[img, on] = rng.permutation(a) / a * 0.6 + 0.35
+    elif name == "N = 60000":
+        b, s, c = random(n=60000)
+        kw = dict(num_candidates=256)
     else:                                              # "K = 8" ...
         k = int(name.split()[-1])
         b, s, c = random(n=max(k, 1200) if k > 300 else 300)
@@ -2167,7 +2208,7 @@ def nms_odd_case(name, rng, dev):
 def nms_check(label, candidates, kw):
     """One batched_nms_scored (exactly one kernel launch) against
     batched_nms_scored_plain on the same CUDA tensors: all five fields
-    exactly equal. Returns the kernel's Detections."""
+    equal bit for bit. Returns the kernel's Detections."""
     from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
     from yolo_tensorflow_tpu_torch.post import nms as NMS
     before = NK.launches
@@ -2178,9 +2219,17 @@ def nms_check(label, candidates, kw):
     require(count == 1, f"{label}: batched_nms_scored launched the NMS "
             f"kernel {count} times, expected 1")
     for field in NMS.Detections._fields:
-        require(torch.equal(getattr(got, field), getattr(want, field)),
+        require(same_bits(getattr(got, field), getattr(want, field)),
                 f"{label}: kernel != plain in {field}")
     return got
+
+
+def same_bits(a, b):
+    """Equal shapes, dtypes and bits (a NaN equals itself, -0.0 does not
+    equal +0.0)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
 
 
 def nms_ious(top, kw):
@@ -2197,60 +2246,174 @@ def nms_ious(top, kw):
     return int((later * walks).sum()), int(active.sum()), int(keep.sum())
 
 
-def nms_kernel_phase(decoded, cfg, dev):
-    """Phase 14. The NMS kernel against its plain version at the main
-    path's shapes (phase 5's decode of yolov3-416, batch 64) and the odd
-    cases; times at the main path. Returns the kernel's JSON fields."""
+def parent_nms(parent):
+    """Start nvcc on ``parent``'s csrc/nms.cu alone; returns a function that
+    waits for it and gives (library with yolo_nms declared, whether its
+    yolo_nms takes ranked candidates: the kernel before this one)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import build
+    from yolo_tensorflow_tpu_torch.ops.kernels import direct_probe as DP
+    csrc = os.path.join(parent, "yolo_tensorflow_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "nms.cu")) as f:
+        params = re.search(r'extern "C" int yolo_nms\(([^)]*)\)',
+                           f.read()).group(1).count(",") + 1
+    job = DP.start_build("parent_nms", csrc, source="nms.cu")
+
+    def finish():
+        lib = DP.finish_build(job)
+        vp, i, f32 = build.VP, build.INT, build.F32
+        ranked = params == 15
+        lib.yolo_nms.argtypes = ([vp] * 3 + [i] * 3 + [f32, f32, i]
+                                 + [vp] * 6 if ranked
+                                 else build.SIGNATURES["yolo_nms"][0])
+        lib.yolo_nms.restype = i
+        return lib, ranked
+    return finish
+
+
+def parent_stage(parent, decoded, kw):
+    """The parent's NMS stage on ``decoded``, launched directly: its
+    candidate sort and gathers, then its own csrc/nms.cu on the ranked
+    candidates (or, a parent with this design, its one launch)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    lib, ranked = parent
+    boxes, scores, labels = decoded
+    b, n = scores.shape
+    d = kw["max_detections"]
+    out = NK._outputs(b, d, boxes.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    opts = (kw["conf_threshold"], kw["iou_threshold"], int(kw["class_aware"]))
+    if ranked:
+        cb, cs, cl = (t.contiguous() for t in NK.select_candidates(
+            boxes, scores, labels, conf_threshold=kw["conf_threshold"],
+            num_candidates=kw["num_candidates"]))
+        err = lib.yolo_nms(cb.data_ptr(), cs.data_ptr(), cl.data_ptr(), b,
+                           cs.shape[1], d, *opts,
+                           *(t.data_ptr() for t in out), stream)
+    else:
+        p = NK.plan(n, kw["num_candidates"], d)
+        scratch = None if p.staged else torch.empty(
+            (b * p.scratch_bytes,), dtype=torch.uint8, device=boxes.device)
+        err = lib.yolo_nms(boxes.data_ptr(), scores.data_ptr(),
+                           labels.data_ptr(), b, n, p.candidates, d, *opts,
+                           None if scratch is None else scratch.data_ptr(),
+                           *(t.data_ptr() for t in out), stream)
+    require(err == 0, f"the parent's nms kernel failed: CUDA error {err}")
+    return out
+
+
+def nms_stage_times(label, decoded, kw, got, parent, smi):
+    """Phase 14's times of one NMS stage: the kernel's device ms with the
+    host kept ahead, in turns with the parent's stage where there is one
+    (parent, kernel, kernel, parent; its Detections equal the kernel's),
+    the plain version's host ms, and the bound of this data. Returns the
+    kernels line's fields."""
     from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
     from yolo_tensorflow_tpu_torch.post import nms as NMS
     boxes, scores, labels = decoded
     batch, n = scores.shape
+    conf, d = kw["conf_threshold"], kw["max_detections"]
+    turns = [("kernel", lambda: NMS.batched_nms_scored(*decoded, **kw))] * 2
+    if parent is not None:
+        par = parent_stage(parent, decoded, kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(NMS.Detections._fields, par, got):
+            require(same_bits(a, b), f"{label}: the parent's stage "
+                    f"differs in {name}")
+        par_fn = (lambda: parent_stage(parent, decoded, kw))
+        turns = [("parent", par_fn)] + turns + [("parent", par_fn)]
+    times = collections.defaultdict(list)
+    for name, fn in turns:
+        times[name].append(cuda_ms(fn, ahead_cycles=SPIN))
+    ms = statistics.mean(times["kernel"])
+    plain_ms = statistics.median(
+        wall_ms(lambda: NMS.batched_nms_scored_plain(*decoded, **kw), 3)
+        for _ in range(3))
+    top = NK.select_candidates(boxes, scores, labels, conf_threshold=conf,
+                               num_candidates=kw["num_candidates"])
+    ious, selected, kept = nms_ious(top, kw)
+    active = int((scores > conf).sum())
+    nbytes = batch * n * 4 + selected * 20 + batch * (d * 25 + 4)
+    bnd, by = bound_ms(nbytes, ious * NMS_FLOPS, F32_OPS_S)
+    parent_ms = (statistics.mean(times["parent"]) if parent is not None
+                 else None)
+    par_txt = ("the parent's stage (stable sort + gathers + its nms.cu) "
+               + " / ".join(f"{t:.4f}" for t in times["parent"])
+               + f" ms, {parent_ms / ms:.2f}x the kernel's, Detections "
+               "equal" if parent is not None
+               else "the parent's stage not measured (no --parent)")
+    print(f"[14 nms kernel] {label}: N={n} K={top[1].shape[1]} D={d} conf "
+          f"{conf} class-aware {kw['class_aware']}: {active} active, "
+          f"{selected} selected, {kept} kept, num {got[4].sum().item()} in "
+          f"all; the stage {' / '.join(f'{t:.4f}' for t in times['kernel'])}"
+          f" ms (device, host kept ahead, one launch); bound {bnd:.6f} ms "
+          f"({by}: {nbytes} bytes, {ious} IoUs walked), {ms / bnd:.0f}x it; "
+          f"{par_txt}; plain {plain_ms:.2f} ms (host clock: it syncs); on "
+          f"{smi}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None, "parent_ms": parent_ms}
+
+
+def nms_stage_kernels(decoded, kw):
+    """Names of the device kernels of one batched_nms_scored call, from a
+    torch.profiler trace with CUDA activity only (memcpy and memset
+    included)."""
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        NMS.batched_nms_scored(*decoded, **kw)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "nms.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def nms_kernel_phase(mains, cfg, dev, smi, parent):
+    """Phase 14. The NMS kernel against its plain version, all five fields
+    exactly equal: at the main paths' decodes (``mains``: label ->
+    (decoded, conf); yolov3-416 batch 64 also in the bf16 scoring mode, at
+    batch 1 and 8), class-aware off and on, the odd cases and K =
+    NMS_BIG_K; the device kernels of one call from a profiler trace; the
+    stage's times (``nms_stage_times``) at the main paths. Returns the
+    kernels line's fields (yolov3-416, batch 64, CONF)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+    from yolo_tensorflow_tpu_torch.post import nms as NMS
+    base = dict(iou_threshold=cfg.iou_threshold,
+                max_detections=cfg.max_detections, num_candidates=256)
+    main = f"{MODEL}-{cfg.input_size}"
+    v3, _ = mains[main]
+    runs = [(label, decoded, conf, aware)
+            for label, (decoded, conf) in mains.items()
+            for aware in (False, True)]
+    runs += [(main, tuple(t[:b] for t in v3), CONF, False) for b in (1, 8)]
+    runs += [(main, v3, 0.05, aware) for aware in (False, True)]
     fields = None
-    for conf in (CONF, 0.05):
-        for aware in (False, True):
-            kw = dict(conf_threshold=conf, iou_threshold=cfg.iou_threshold,
-                      max_detections=cfg.max_detections, num_candidates=256,
-                      class_aware=aware)
-            got = nms_check(f"NMS B={batch} N={n} conf {conf} class-aware "
-                            f"{aware}", decoded, kw)
-            top = NMS.select_candidates(boxes, scores, labels,
-                                        conf_threshold=conf,
-                                        num_candidates=256)
-            sel_kw = {k: v for k, v in kw.items() if k != "num_candidates"}
-            topk_ms = cuda_ms(lambda: NMS.select_candidates(
-                boxes, scores, labels, conf_threshold=conf,
-                num_candidates=256), ahead_cycles=SPIN)
-            ms = cuda_ms(lambda: NK.greedy_select(*top, **sel_kw),
-                         ahead_cycles=SPIN)
-            plain_ms = statistics.median(
-                wall_ms(lambda: NK.greedy_select_plain(*top, **sel_kw), 3)
-                for _ in range(3))
-            whole_ms = wall_ms(lambda: NMS.batched_nms_scored_plain(
-                boxes, scores, labels, **kw), 3)
-            loop_ms = wall_ms(lambda: [NMS.batched_nms_scored_plain(
-                boxes[i:i + 1], scores[i:i + 1], labels[i:i + 1], **kw)
-                for i in range(batch)], 1)
-            ious, active, kept = nms_ious(top, kw)
-            k = top[1].shape[1]
-            d = cfg.max_detections
-            nbytes = batch * (k * 24 + d * 25 + 4)
-            bnd, by = bound_ms(nbytes, ious * NMS_FLOPS + batch * k * 3,
-                               F32_OPS_S)
-            print(f"[14 nms kernel] {MODEL}-{cfg.input_size} decode "
-                  f"B={batch} N={n} K={k} "
-                  f"D={d} conf {conf} class-aware {aware}: kernel == plain in "
-                  f"all five fields, 1 launch; {active} active candidates, "
-                  f"{kept} kept, num {got.num.sum().item()} in all; "
-                  f"candidate sort + gathers {topk_ms:.4f} ms, kernel "
-                  f"{ms:.4f} ms (device, "
-                  f"host kept ahead); bound {bnd:.6f} ms ({by}: {nbytes} bytes, "
-                  f"{ious} IoUs walked, K^2/2 = {batch * k * k // 2} at "
-                  f"most); plain greedy step {plain_ms:.2f} ms, plain top-k "
-                  f"+ greedy {whole_ms:.2f} ms, the former per-image loop "
-                  f"{loop_ms:.1f} ms (host clock, they sync)")
-            if conf == CONF and not aware:
-                fields = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                          "bound_by": by, "library_ms": None}
+    for label, decoded, conf, aware in runs:
+        kw = dict(base, conf_threshold=conf, class_aware=aware)
+        scores = decoded[1]
+        top = torch.sort(torch.where(scores > conf, scores, -1.0), dim=1,
+                         descending=True).values
+        k = min(256, scores.shape[1])
+        ties = (int(((top[:, k - 1] == top[:, k]) & (top[:, k] > conf))
+                    .sum()) if k < scores.shape[1] else 0)
+        got = nms_check(f"NMS {label} B={scores.shape[0]} conf {conf} "
+                        f"class-aware {aware} ({ties} images with a tie "
+                        "across the K-th)", decoded, kw)
+        times = nms_stage_times(f"{label}, B={scores.shape[0]}", decoded,
+                                kw, got, parent, smi)
+        if fields is None:                 # the main path: runs[0]
+            fields = times
+    names = nms_stage_kernels(v3, dict(base, conf_threshold=CONF,
+                                       class_aware=False))
+    require(len(names) == 1 and "nms_kernel" in names[0],
+            f"one batched_nms_scored call ran {names} on the card, "
+            "expected the NMS kernel alone")
+    print(f"[14 nms kernel] the device kernels of one batched_nms_scored "
+          f"call (torch.profiler, CUDA activity): {names}")
     rng = np.random.default_rng(SEED + 14)
     cases = 0
     for name in NMS_ODD:
@@ -2264,14 +2427,13 @@ def nms_kernel_phase(decoded, cfg, dev):
                 require(got.num.tolist() == [2], "IoU at the threshold: "
                         f"num {got.num.tolist()}, expected 2")
             cases += 1
-    big = NK.shared_bytes(NMS_BIG_K, NMS_ODD_KW["max_detections"])
+    big = NK.plan(NMS_BIG_K, NMS_BIG_K, NMS_ODD_KW["max_detections"])
     candidates, kw = nms_odd_case(f"K = {NMS_BIG_K}", rng, dev)
-    nms_check(f"NMS K = {NMS_BIG_K} (dynamic shared memory above 48 KB)",
-              candidates, kw)
+    nms_check(f"NMS K = {NMS_BIG_K} (candidates in scratch)", candidates, kw)
     print(f"[14 nms kernel] {cases} odd cases ({', '.join(NMS_ODD)}; each "
-          f"class-aware off and on) and K = {NMS_BIG_K} ({big} bytes of "
-          "shared memory): one launch each, equal to plain in all five "
-          "fields")
+          f"class-aware off and on) and K = {NMS_BIG_K} ({big.shared_bytes} "
+          f"bytes of shared memory, {big.scratch_bytes} of scratch an "
+          "image): one launch each, equal to plain in all five fields")
     return {"max_abs_err": 0.0, **fields}
 
 
@@ -2751,7 +2913,8 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
     t0 = time.perf_counter()
     outs = Q.calibrate_outputs(specs, folded, calib, cfg=cfg, device=dev)
     cal_s = time.perf_counter() - t0
-    outs_cpu = Q.calibrate_outputs(specs, folded, calib[:1], cfg=cfg)
+    outs_cpu = Q.calibrate_outputs(specs, folded, calib[:1], cfg=cfg,
+                                   device="cpu")
     outs_gpu1 = Q.calibrate_outputs(specs, folded, calib[:1], cfg=cfg,
                                     device=dev)
     cal_err = max(abs(outs_gpu1[k] - outs_cpu[k]) / outs_cpu[k]
@@ -4619,8 +4782,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port's main paths on one GPU.")
     parser.add_argument("--parent", default=None, help=(
-        "an earlier checkout (git archive) whose direct int8 kernel is "
-        "timed in turns with this one"))
+        "an earlier checkout (git archive) whose direct int8 kernel and "
+        "NMS stage are timed in turns with this one's"))
     parent = parser.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -4642,7 +4805,7 @@ def main(argv=None):
     from yolo_tensorflow_tpu_torch.ops.kernels import decode as K
     from yolo_tensorflow_tpu_torch.ops.kernels import direct_probe as DP
     from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
-    from yolo_tensorflow_tpu_torch.pipeline import Detector
+    from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
     from yolo_tensorflow_tpu_torch.post import nms as NMS
 
     # 1. device
@@ -4661,15 +4824,17 @@ def main(argv=None):
     t0 = time.perf_counter()
     parent_job = (None if parent is None else DP.start_build(
         "parent", os.path.join(parent, "yolo_tensorflow_tpu_torch", "csrc")))
+    parent_nms_job = None if parent is None else parent_nms(parent)
     lib_path = build.build(force=True)
     build_s = time.perf_counter() - t0
     build.load()
     parent_lib = (None if parent_job is None else
                   DP.finish_build(parent_job))
+    parent_nms_lib = None if parent is None else parent_nms_job()
     print(f"[2 build] nvcc built {[s.name for s in build.sources()]} -> "
           f"{lib_path.name} in {build_s:.2f} s"
           + ("" if parent is None else
-             f"; the parent's conv_int8.cu from {parent} in "
+             f"; the parent's conv_int8.cu and nms.cu from {parent} in "
              f"{time.perf_counter() - t0:.2f} s"))
 
     # 3. decode kernel vs plain at the v3 and region head shapes
@@ -4722,14 +4887,18 @@ def main(argv=None):
         counted_forward("5 bf16", lambda: det.detect_batch(x), decode=1,
                         nms=1)
         net_ms, dec_ms, nms_ms, decoded = step_split(det, x, cfg, CONF)
+        with torch.inference_mode():       # phase 14's ties: bf16 scores
+            decoded_bf16 = K.decode_fused(
+                det.network(normalize_images(x, cfg, det.network.dtype)),
+                cfg, score_dtype=torch.bfloat16)
         step = statistics.median(step_ms)
         float_rate = statistics.median(rates)
         print(f"[5 bf16] detect_batch B={SERVE_BATCH} at {cfg.input_size}, "
               f"images on the card: {float_rate:.1f} img/s median of 3 x 5 "
               f"steps (spread {min(rates):.1f}..{max(rates):.1f}), step "
               f"{step:.2f} ms; backbone {net_ms:.2f} ms, decode "
-              f"{dec_ms:.4f} ms, NMS {nms_ms:.4f} ms (device: candidate sort "
-              f"+ the kernel), the rest "
+              f"{dec_ms:.4f} ms, NMS {nms_ms:.4f} ms (device: one kernel), "
+              f"the rest "
               f"{step - net_ms - dec_ms - nms_ms:.2f} ms; "
               f"peak memory {peak:.2f} GiB; mean num {out.num.mean():.1f}; "
               f"on {smi}")
@@ -4767,18 +4936,23 @@ def main(argv=None):
         del params, stats
 
         # 11-12. yolov2-416: the region head on its real path; 13. yolov1
-        v2_launches, v2_path = family_phases(
+        v2_launches, v2_path, v2_decoded = family_phases(
             "yolov2", ("11 yolov2 f32", "12 yolov2 bf16"), dev, kind, smi,
             tmp)
-        _, v1_path = family_phases(
+        _, v1_path, v1_decoded = family_phases(
             "yolov1", ("13 yolov1 f32", "13 yolov1 bf16"), dev, kind, smi,
             tmp)
         require(launches == v2_launches == 1, "decode launches per forward: "
                 f"yolov3 {launches}, yolov2 {v2_launches}, expected 1 each")
 
-        # 14. the NMS kernel vs plain at phase 5's decode and odd cases
-        nms_fields = nms_kernel_phase(decoded, cfg, dev)
-        del decoded
+        # 14. the NMS kernel vs plain at the decodes of phases 5, 12 and
+        # 13 and odd cases
+        nms_fields = nms_kernel_phase({
+            f"{MODEL}-{cfg.input_size}": (decoded, CONF),
+            f"{MODEL}-{cfg.input_size} bf16 scores": (decoded_bf16, CONF),
+            "yolov2-416": v2_decoded, "yolov1-448": v1_decoded}, cfg, dev,
+            smi, parent_nms_lib)
+        del decoded, decoded_bf16, v2_decoded, v1_decoded
 
         # 15. the fused letterbox
         letterbox_phase(cfg, path, qparams, int8_launches, dev, smi)
@@ -4865,7 +5039,7 @@ def main(argv=None):
         "launches": bnstat_launches, **bnstat_entry}, {
         "name": "greedy_nms", "route": "cuda",
         "source": "yolo_tensorflow_tpu_torch/csrc/nms.cu",
-        "replaces": "yolo_tensorflow_tpu/post/nms.py:103",
+        "replaces": "yolo_tensorflow_tpu/post/nms.py:126",
         "launches": nms_launches, **nms_fields}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -82,7 +82,7 @@ def test_calibrate_outputs_matches_jax(quantized):
     _, cfg, specs, jcfg, jspecs, port, jaxp, _, _ = quantized
     calib = [images(2, SIZE, seed=s) for s in (3, 4)]
     want = JQ.calibrate_outputs(jspecs, jaxp, calib, cfg=jcfg)
-    got = TQ.calibrate_outputs(specs, port, calib, cfg=cfg)
+    got = TQ.calibrate_outputs(specs, port, calib, cfg=cfg, device="cpu")
     assert got.keys() == want.keys() and -1 in got
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-5,

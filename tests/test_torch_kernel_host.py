@@ -48,6 +48,7 @@ from yolo_tensorflow_tpu_torch.ops.kernels import decode as DK
 from yolo_tensorflow_tpu_torch.ops.kernels import direct_probe as DP
 from yolo_tensorflow_tpu_torch.ops.kernels import igemm
 from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
+from yolo_tensorflow_tpu_torch.ops.kernels import nms_probe as NP
 
 from torch_parity import model
 
@@ -488,65 +489,110 @@ def test_nms_limits_match_the_source():
 
     def const(name):
         expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
-        return eval(expr, {"__builtins__": {}})
+        names = set(re.findall(r"\bk[A-Z]\w*", expr))
+        return eval(expr, {"__builtins__": {}},
+                    {n: const(n) for n in names})
 
-    assert NK.MAX_THREADS == const("kMaxThreads")
+    assert NK.THREADS == const("kThreads")
     assert NK.MAX_SHARED_BYTES == const("kMaxSharedBytes")
+    assert NK.BINS == const("kBins")
     assert NK.BYTES_PER_CANDIDATE == const("kBytesPerCandidate")
+    assert NK.BYTES_PER_SCORE == const("kBytesPerScore")
+    assert NK.FIXED_BYTES == const("kFixedBytes")
 
 
-@pytest.mark.parametrize("k,d", [(256, 20), (1024, 100), (9000, 20)])
-def test_nms_shared_memory_fits(k, d):
-    assert NK.shared_bytes(k, d) == 25 * k + 4 * d <= NK.MAX_SHARED_BYTES
+@pytest.mark.parametrize("n,k,d,staged", [
+    (10647, 256, 20, True),      # yolov3-416
+    (22743, 256, 20, True),      # yolov3-608
+    (845, 256, 20, True),        # yolov2-416
+    (98, 256, 20, True),         # yolov1-448: K = N
+    (9000, 9000, 20, False),     # K past the staged layout: scratch
+    (256, 256, 20, True), (1024, 1024, 100, True), (60000, 256, 20, False)])
+def test_nms_shared_memory_fits(n, k, d, staged):
+    """Staged: the keys and the K candidates in shared memory; else the
+    kept list alone, the candidates in scratch."""
+    kk = min(n, k)
+    small = 4 * d + 256 * 16 * 4 + 2 * 16 * 4 + 32
+    plan = NK.plan(n, k, d)
+    assert plan.candidates == kk and plan.staged == staged
+    if staged:
+        assert plan.shared_bytes == small + 36 * kk + 4 * n
+        assert plan.scratch_bytes == 0
+    else:
+        assert small + 36 * kk + 4 * n > NK.MAX_SHARED_BYTES
+        assert plan.shared_bytes == small and plan.scratch_bytes == 36 * kk
+    assert plan.shared_bytes <= NK.MAX_SHARED_BYTES
 
 
-@pytest.mark.parametrize("k,d", [(9298, 1), (9295, 20), (20000, 20)])
-def test_nms_raises_past_the_shared_memory_limit(k, d):
+@pytest.mark.parametrize("n,k,d", [(98, 256, 57000), (9000, 9000, 57000),
+                                   (10 ** 7, 2 * 10 ** 6, 10 ** 6)])
+def test_nms_raises_past_the_shared_memory_limit(n, k, d):
     with pytest.raises(ValueError, match=f"more than the {227 * 1024}"):
-        NK.shared_bytes(k, d)
+        NK.plan(n, k, d)
 
 
-def _nms_candidates(device="cpu", b=2, k=8):
-    return (torch.zeros((b, k, 4), device=device),
-            torch.zeros((b, k), device=device),
-            torch.zeros((b, k), dtype=torch.int32, device=device))
+def test_nms_probe_stamps_every_phase():
+    """nms_probe's copy of csrc/nms.cu reads the clock at each of the
+    source's seven phase boundaries, and only there."""
+    text = (build.CSRC_DIR / "nms.cu").read_text()
+    assert [int(k) for k in re.findall(r"// \[stamp:(\d)\]", text)] == list(
+        range(len(NP.PHASES) + 1))
+    copy = NP.stamped_source()
+    assert "[stamp:" not in copy and copy.count("clock64()") == 7
+    assert copy.count("nms_stamps[blockIdx.x * 8 + ") == 7
+
+
+def _nms_decode(device="cpu", b=2, n=8):
+    return (torch.zeros((b, n, 4), device=device),
+            torch.zeros((b, n), device=device),
+            torch.zeros((b, n), dtype=torch.int32, device=device))
 
 
 NMS_KW = dict(conf_threshold=0.5, iou_threshold=0.5, max_detections=4,
-              class_aware=False)
+              num_candidates=6, class_aware=False)
 
 
 def test_nms_wrapper_raises_on_other_devices():
     with pytest.raises(ValueError, match="runs on cpu or cuda, not meta"):
-        NK.greedy_select(*_nms_candidates("meta"), **NMS_KW)
+        NK.greedy_nms(*_nms_decode("meta"), **NMS_KW)
 
 
 def test_nms_wrapper_rejects_what_the_kernel_does_not_take():
     """Checked on the host before any launch, so also without a card."""
-    boxes, scores, labels = _nms_candidates()
+    boxes, scores, labels = _nms_decode()
     with pytest.raises(ValueError, match="int32 labels"):
-        NK.greedy_select(boxes, scores, labels.long(), **NMS_KW)
+        NK.greedy_nms(boxes, scores, labels.long(), **NMS_KW)
     with pytest.raises(ValueError, match="f32 boxes"):
-        NK.greedy_select(boxes.double(), scores, labels, **NMS_KW)
-    with pytest.raises(ValueError, match=r"boxes \(B, K, 4\)"):
-        NK.greedy_select(boxes[:, :4], scores, labels, **NMS_KW)
+        NK.greedy_nms(boxes.double(), scores, labels, **NMS_KW)
+    with pytest.raises(ValueError, match=r"boxes \(B, N, 4\)"):
+        NK.greedy_nms(boxes[:, :4], scores, labels, **NMS_KW)
+    with pytest.raises(ValueError, match=r"scores must be \(B, N\)"):
+        NK.greedy_nms(boxes, scores[0], labels, **NMS_KW)
     with pytest.raises(ValueError, match="at least 1"):
-        NK.greedy_select(boxes, scores, labels,
-                         **dict(NMS_KW, max_detections=0))
+        NK.greedy_nms(boxes, scores, labels,
+                      **dict(NMS_KW, max_detections=0))
+    with pytest.raises(ValueError, match="at least 1"):
+        NK.greedy_nms(boxes, scores, labels,
+                      **dict(NMS_KW, num_candidates=0))
     with pytest.raises(ValueError, match="below -1"):
-        NK.greedy_select(boxes, scores, labels,
-                         **dict(NMS_KW, conf_threshold=-2.0))
+        NK.greedy_nms(boxes, scores, labels,
+                      **dict(NMS_KW, conf_threshold=-2.0))
 
 
 def test_nms_wrapper_on_cpu_is_the_plain_version(rng):
+    """Unranked decode rows in, the plain version (select_candidates, then
+    greedy_select_plain) out, and no launch."""
     boxes = torch.from_numpy(rng.uniform(0, 1, (3, 16, 4)).astype(
         np.float32)).sort(dim=-1).values
-    scores = torch.from_numpy(np.sort(rng.uniform(0, 1, (3, 16)))[:, ::-1]
-                              .astype(np.float32).copy())
+    scores = torch.from_numpy(rng.uniform(0, 1, (3, 16)).astype(np.float32))
     labels = torch.from_numpy(rng.integers(0, 3, (3, 16)).astype(np.int32))
     before = NK.launches
-    got = NK.greedy_select(boxes, scores, labels, **NMS_KW)
-    want = NK.greedy_select_plain(boxes, scores, labels, **NMS_KW)
+    got = NK.greedy_nms(boxes, scores, labels, **NMS_KW)
+    want = NK.nms_plain(boxes, scores, labels, **NMS_KW)
+    cand = NK.select_candidates(boxes, scores, labels, conf_threshold=0.5,
+                                num_candidates=6)
+    ranked = NK.greedy_select_plain(
+        *cand, **{k: v for k, v in NMS_KW.items() if k != "num_candidates"})
     assert NK.launches == before
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for g, w, r in zip(got, want, ranked):
+        assert torch.equal(g, w) and torch.equal(g, r)

@@ -76,17 +76,19 @@ def test_decode_fake_matches_real(grids, anchors, classes, softmax, bf16):
 @pytest.mark.parametrize("k,d,class_aware", [(64, 20, False), (8, 20, True),
                                              (256, 100, False)])
 def test_nms_fake_matches_real(k, d, class_aware):
+    """The unranked decode of 3 images of 200 rows, K = min(k, 200)."""
     rng = np.random.default_rng(1)
-    xy = rng.uniform(0, 0.8, (3, k, 2)).astype(np.float32)
+    xy = rng.uniform(0, 0.8, (3, 200, 2)).astype(np.float32)
     boxes = torch.from_numpy(np.concatenate(
-        [xy, xy + rng.uniform(0.05, 0.2, (3, k, 2)).astype(np.float32)], -1))
-    scores = torch.from_numpy(-np.sort(-rng.uniform(0, 1, (3, k)), 1)
-                              .astype(np.float32))
-    labels = torch.from_numpy(rng.integers(0, 4, (3, k)).astype(np.int32))
-    out = _fake_matches(NK.nms_op, boxes, scores, labels, 0.3, 0.45, d,
+        [xy, xy + rng.uniform(0.05, 0.2, (3, 200, 2)).astype(np.float32)],
+        -1))
+    scores = torch.from_numpy(rng.uniform(0, 1, (3, 200)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 4, (3, 200)).astype(np.int32))
+    out = _fake_matches(NK.nms_op, boxes, scores, labels, 0.3, 0.45, d, k,
                         class_aware)
     assert [t.shape for t in out] == [(3, d, 4), (3, d), (3, d), (3, d),
                                       (3,)]
+    assert out[4].sum() > 0
 
 
 def _x(rng, b, c, h, dtype=torch.float32):
@@ -151,12 +153,9 @@ def test_wrappers_reach_the_operators_on_cpu():
     s_w, b = torch.full((16,), 0.01), torch.zeros(16)
     assert torch.equal(Q8.conv2d_int8(x, w, 0.05, s_w, b, act="leaky"),
                        Q8.conv2d_int8_plain(x, w, 0.05, s_w, b, act="leaky"))
-    boxes, scores, labels = heads.xywh_to_xyxy(want[0]), want[1], want[2]
-    top = scores.argsort(dim=1, descending=True, stable=True)
-    cand = (boxes.gather(1, top[:, :, None].expand(-1, -1, 4)),
-            scores.gather(1, top), labels.gather(1, top))
+    decoded = heads.xywh_to_xyxy(want[0]), want[1], want[2]
     kw = dict(conf_threshold=0.2, iou_threshold=0.45, max_detections=10,
-              class_aware=False)
+              num_candidates=32, class_aware=False)
     assert all(torch.equal(a, b) for a, b in zip(
-        NK.greedy_select(*cand, **kw), NK.greedy_select_plain(*cand, **kw)))
+        NK.greedy_nms(*decoded, **kw), NK.nms_plain(*decoded, **kw)))
     assert (K.launches, NK.launches, Q8.launches, Q8.launches_q) == before

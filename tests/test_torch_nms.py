@@ -7,9 +7,15 @@ suppression chain, an IoU of exactly the threshold, zero-area and inverted
 boxes, K from 8 to 1024. Scores are distinct: exactly tied scores are
 unordered in the reference too.
 
-The kernel cannot run here; ``_kernel_walk`` transcribes its sequential
-walk (float32 IoU in iou_matrix's order, dead flags, stop at the D-th kept
-candidate) in numpy, and is held to the plain batched fixpoint."""
+The kernel cannot run here; ``_kernel`` transcribes csrc/nms.cu in numpy
+(the order keys with -0.0 made +0.0, the radix select over the varying bits
+with its index tie-break, the ranking by (key, index), the walk through
+windows of 32 ranks that stops at the D-th kept candidate, float32 IoU in
+iou_matrix's order) and is
+held to the plain version on the unranked decode, at the odd cases and at
+the kernel's own: exact bf16 ties across the K-th candidate, +0.0 beside
+-0.0, NaN and inf scores and boxes, fewer, as many and more active
+candidates than K, and yolov3-416's N = 10647."""
 
 import numpy as np
 import pytest
@@ -74,6 +80,37 @@ def _case(name, rng):
         b[:, 2::4, [0, 2]] = b[:, 2::4, [2, 0]]         # inverted in x
         b[:, 3::8, :] = 0.0                             # a point at 0
         return b, s, c, {}
+    if name == "ties at the K-th":
+        # bf16-rounded scores: exact ties, across the K-th among them
+        b, s, c = _inputs(rng)
+        s = torch.from_numpy(rng.uniform(0.3, 0.9, s.shape).astype(
+            np.float32)).to(torch.bfloat16).float().numpy()
+        return b, s, c, {}
+    if name == "+0 and -0":
+        # all active at conf -0.5; the K-th among many +-0.0 in any order
+        b, s, c = _inputs(rng)
+        s = rng.choice(np.float32([0.5, 0.25, 0.0, -0.0, -0.25]), s.shape,
+                       p=[0.05, 0.05, 0.3, 0.3, 0.3])
+        return b, s, c, dict(conf_threshold=-0.5)
+    if name == "NaN and inf":
+        b, s, c = _inputs(rng)
+        s[:, ::7] = np.nan
+        s[:, 3::11] = np.inf
+        s[:, 5::13] = -np.inf
+        b[:, 1::17, 2] = np.nan                         # NaN and inf boxes
+        b[:, 2::19, 3] = np.inf
+        return b, s, c, {}
+    if name in ("A < K", "A = K", "A > K"):
+        # K = 64 of 300, exactly 40, 64 or 100 active in each image
+        b, s, c = _inputs(rng)
+        a = {"A < K": 40, "A = K": 64, "A > K": 100}[name]
+        s = s * np.float32(0.29)
+        for img in range(s.shape[0]):
+            on = rng.choice(s.shape[1], a, replace=False)
+            s[img, on] = rng.permutation(a) / np.float32(a) * 0.6 + 0.35
+        return b, s.astype(np.float32), c, {}
+    if name == "N = 10647":                             # yolov3-416's rows
+        return (*_inputs(rng, batch=2, n=10647), dict(num_candidates=256))
     k = int(name.split()[-1])                           # "K = 8" ...
     return (*_inputs(rng, n=max(k, 1200) if k > 300 else 300),
             dict(num_candidates=k))
@@ -82,6 +119,10 @@ def _case(name, rng):
 CASES = ["batch 1", "K > N", "D > K", "none active", "all active", "chain",
          "IoU at the threshold", "degenerate", "K = 8", "K = 64", "K = 256",
          "K = 300", "K = 1024"]
+# the kernel's own cases besides: ties, signed zeros, NaN and inf, the
+# active count against K, the main path's N
+KERNEL_CASES = CASES + ["ties at the K-th", "+0 and -0", "NaN and inf",
+                        "A < K", "A = K", "A > K", "N = 10647"]
 DEFAULTS = dict(conf_threshold=0.3, iou_threshold=0.45, max_detections=20,
                 num_candidates=64)
 
@@ -138,69 +179,156 @@ def test_odd_cases_match_jax(name, class_aware, rng):
         assert got.num.tolist() == [2]       # the third and fourth go
 
 
-def _kernel_walk(boxes, scores, labels, *, conf_threshold, iou_threshold,
-                 max_detections, class_aware):
-    """numpy transcription of csrc/nms.cu's walk over one batch."""
+def _keys(scores, conf):
+    """csrc/nms.cu's score_key: 0 for an inactive score (NaN included), else
+    a uint32 that orders as the score, -0.0 first made +0.0."""
+    s = np.ascontiguousarray(scores, np.float32)
+    u = s.view(np.uint32).astype(np.int64)
+    u[u == 0x80000000] = 0
+    key = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    with np.errstate(invalid="ignore"):
+        return np.where(s > np.float32(conf), key, 0)
+
+
+def _radix_select(keys, k):
+    """The kernel's selection from one image's keys: (threshold, how many
+    keys equal to it are taken). Every key above the threshold is taken.
+    Radix select of the K-th largest key in 8-bit digits over the bits that
+    vary among the active keys, stopping where a digit's bin holds just the
+    keys still wanted."""
+    act = keys[keys > 0]
+    if act.size <= k:
+        return 0, 0
+    k_and = int(np.bitwise_and.reduce(act))
+    vary = k_and ^ int(np.bitwise_or.reduce(act))
+    prefix, decided, remaining = k_and, ~vary & 0xFFFFFFFF, k
+    lo, shift = (vary & -vary).bit_length() - 1, vary.bit_length()
+    while vary and shift > lo:
+        width = min(8, shift - lo)
+        shift -= width
+        digit = ((1 << width) - 1) << shift
+        match = act[((act ^ prefix) & decided) == 0]
+        hist = np.bincount((match & digit) >> shift, minlength=256)
+        above, b = 0, 255
+        while above + hist[b] < remaining:     # from the top bin down
+            above += hist[b]
+            b -= 1
+        fits = above + hist[b] == remaining
+        remaining -= above
+        prefix = (prefix & ~digit) | (b << shift)
+        decided |= digit
+        if fits:                      # the bin holds just the keys wanted
+            return prefix - 1, 0
+    return prefix, remaining
+
+
+def _iou_f32(a, area_a, b, area_b):
+    """The kernel's iou of one box against many, float32 step by step in
+    iou_matrix's order; NaN kept by max, min and the clamps."""
     f32 = np.float32
-    B, k = scores.shape
-    D = max_detections
+
+    def clamp0(v):
+        return np.where(v < f32(0), f32(0), v)
+
+    with np.errstate(all="ignore"):
+        inter = (clamp0(np.minimum(a[2], b[:, 2]) - np.maximum(a[0], b[:, 0]))
+                 * clamp0(np.minimum(a[3], b[:, 3])
+                          - np.maximum(a[1], b[:, 1])))
+        union = (area_a + area_b) - inter
+        return inter / np.where(union < f32(1e-9), f32(1e-9), union)
+
+
+def _kernel(boxes, scores, labels, *, conf_threshold, iou_threshold,
+            max_detections, num_candidates, class_aware):
+    """numpy transcription of csrc/nms.cu over one batch -> (Detections,
+    each image's ranked candidates (boxes, scores, labels))."""
+    f32 = np.float32
+    B, n = scores.shape
+    k, D = min(num_candidates, n), max_detections
     out = (np.zeros((B, D, 4), f32), np.zeros((B, D), f32),
            np.zeros((B, D), np.int32), np.zeros((B, D), bool),
            np.zeros(B, np.int32))
-
-    def area(b):
-        return (np.maximum(b[2] - b[0], f32(0))
-                * np.maximum(b[3] - b[1], f32(0)))
-
+    ranked = []
     for img in range(B):
-        bx = boxes[img]
-        areas = [area(b) for b in bx]
-        dead = ~(scores[img] > f32(conf_threshold))
+        keys = _keys(scores[img], conf_threshold)
+        threshold, need = _radix_select(keys, k)
+        # every key above the threshold, the first `need` equal to it in
+        # index order; ranked by the pair (key, ~index), largest first
+        sel = np.concatenate([np.flatnonzero(keys > threshold),
+                              np.flatnonzero(keys == threshold)[:need]])
+        pairs = (keys[sel].astype(np.uint64) << np.uint64(32)) | (
+            ~sel.astype(np.int64) & 0xFFFFFFFF).astype(np.uint64)
+        order = np.empty_like(sel)
+        order[(pairs[None, :] > pairs[:, None]).sum(1)] = sel
+        bx = boxes[img, order]
+        with np.errstate(invalid="ignore"):
+            area = (np.where(bx[:, 2] - bx[:, 0] < 0, f32(0),
+                             bx[:, 2] - bx[:, 0])
+                    * np.where(bx[:, 3] - bx[:, 1] < 0, f32(0),
+                               bx[:, 3] - bx[:, 1]))
+        lab = labels[img, order]
+        ranked.append((bx, scores[img, order], lab))
+        # the walk, 32 ranks at a time: a window's ranks that a candidate
+        # kept before it overlaps are dead; one thread's chain through the
+        # window keeps each live one and removes the later ones it
+        # overlaps; it stops at the D-th kept
+        s = len(order)
+
+        def overlaps(r, j):
+            v = _iou_f32(bx[r], area[r], bx[j], area[j])
+            if class_aware:
+                v = np.where(lab[j] != lab[r], f32(0), v)
+            return v > f32(iou_threshold)
+
         kept = []
-        for i in range(k):
-            if dead[i]:
-                continue
-            kept.append(i)
+        for q in range(0, s, 32):
             if len(kept) == D:
                 break
-            for j in range(i + 1, k):
-                if dead[j]:
-                    continue
-                if class_aware and labels[img, j] != labels[img, i]:
-                    v = f32(0)
-                else:
-                    a, b = bx[i], bx[j]
-                    inter = (np.maximum(np.minimum(a[2], b[2])
-                                        - np.maximum(a[0], b[0]), f32(0))
-                             * np.maximum(np.minimum(a[3], b[3])
-                                          - np.maximum(a[1], b[1]), f32(0)))
-                    union = (areas[i] + areas[j]) - inter
-                    v = inter / np.maximum(union, f32(1e-9))
-                if v > f32(iou_threshold):
-                    dead[j] = True
-        for s, c in enumerate(kept):
-            out[0][img, s] = bx[c]
-            out[1][img, s] = scores[img, c]
-            out[2][img, s] = labels[img, c]
-            out[3][img, s] = True
+            window = np.arange(q, min(q + 32, s))
+            removed = np.zeros(len(window), bool)
+            for r in kept:
+                removed |= overlaps(r, window)
+            for i in window:
+                if len(kept) < D and not removed[i - q]:
+                    kept.append(i)
+                    removed |= overlaps(i, window) & (window > i)
+        for slot, r in enumerate(kept):
+            out[0][img, slot] = bx[r]
+            out[1][img, slot] = scores[img, order[r]]
+            out[2][img, slot] = lab[r]
+            out[3][img, slot] = True
         out[4][img] = len(kept)
-    return TN.Detections(*out)
+    return TN.Detections(*out), ranked
 
 
 @pytest.mark.parametrize("class_aware", [False, True])
-@pytest.mark.parametrize("name", CASES[:-1])
+@pytest.mark.parametrize("name", KERNEL_CASES)
 def test_kernel_walk_equals_the_plain_version(name, class_aware, rng):
-    """The kernel's algorithm (sequential walk, stop at the D-th kept
-    candidate, first D kept in rank order) on the candidates
-    select_candidates gives it, against greedy_select_plain."""
+    """The kernel's algorithm (keys, radix select with its index tie-break,
+    ranking, the windowed walk that stops at the D-th kept candidate) on the
+    unranked decode, against batched_nms_scored_plain: the same ranked
+    candidates as select_candidates' active ones, and all five fields."""
     boxes, scores, labels, kw = _run(name, class_aware, rng)
-    cand = TN.select_candidates(
-        *(torch.from_numpy(a) for a in (boxes, scores, labels)),
-        conf_threshold=kw["conf_threshold"],
-        num_candidates=kw.pop("num_candidates"))
-    want = K.greedy_select_plain(*cand, **kw)
-    got = _kernel_walk(*(t.numpy() for t in cand), **kw)
-    _assert_equal(got, TN.Detections(*want))
+    args = [torch.from_numpy(a) for a in (boxes, scores, labels)]
+    want = TN.batched_nms_scored_plain(*args, **kw)
+    got, ranked = _kernel(boxes, scores, labels, **kw)
+    _assert_equal(got, want)
+    cand = K.select_candidates(*args, conf_threshold=kw["conf_threshold"],
+                               num_candidates=kw["num_candidates"])
+    active = cand[1] > kw["conf_threshold"]
+    for img, (bx, sc, lab) in enumerate(ranked):
+        s = int(active[img].sum())
+        assert len(sc) == s and not active[img, s:].any()
+        np.testing.assert_array_equal(bx, cand[0][img, :s].numpy())
+        np.testing.assert_array_equal(sc, cand[1][img, :s].numpy())
+        np.testing.assert_array_equal(lab, cand[2][img, :s].numpy())
+    if name == "ties at the K-th":
+        # some image's K-th score is tied with one past the K-th
+        top = np.sort(scores, axis=1)[:, ::-1]
+        k = kw["num_candidates"]
+        assert (top[:, k - 1] == top[:, k]).any()
+    if name == "+0 and -0":
+        assert (np.signbit(scores) & (scores == 0)).any()
 
 
 def test_fetch_round_trips(rng):

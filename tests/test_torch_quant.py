@@ -25,6 +25,7 @@ On CPU tensors the wrapper runs the plain version; ``launches`` stays put.
 
 import functools
 import importlib.util
+import inspect
 import os
 
 import numpy as np
@@ -71,11 +72,25 @@ def test_head_conv_layers_match_jax(calibrated):
 
 def test_calibrate_matches_jax(calibrated):
     cfg, specs, _, port, _, batches, want = calibrated
-    got = TQ.calibrate_activations(specs, port, batches, cfg=cfg)
+    got = TQ.calibrate_activations(specs, port, batches, cfg=cfg,
+                                   device="cpu")
     assert got.keys() == want.keys()
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["calibrate_activations",
+                                  "calibrate_outputs"])
+def test_calibration_defaults_to_the_card(name, calibrated):
+    """Like Detector, calibration runs on the card unless the caller asks
+    for the CPU, and raises where there is no card."""
+    cfg, specs, _, port, _, batches, _ = calibrated
+    fn = getattr(TQ, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            fn(specs, port, batches, cfg=cfg)
 
 
 def test_quantize_params_match_jax(calibrated):

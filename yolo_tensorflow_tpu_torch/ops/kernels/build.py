@@ -118,8 +118,8 @@ SIGNATURES = {
     "yolo_conv3x3_bnstat_tiles": ([INT, INT, INT], INT),
     "yolo_conv3x3_bnstat": ([VP, VP, VP, VP, VP, VP, VP, INT, INT, INT, INT,
                              INT, INT, INT, INT, VP], INT),
-    "yolo_nms": ([VP, VP, VP, INT, INT, INT, F32, F32, INT, VP, VP, VP, VP,
-                  VP, VP], INT),
+    "yolo_nms": ([VP, VP, VP, INT, INT, INT, INT, F32, F32, INT, VP, VP, VP,
+                  VP, VP, VP, VP], INT),
 }
 
 

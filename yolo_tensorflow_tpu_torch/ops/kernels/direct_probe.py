@@ -139,10 +139,11 @@ def patched_source(ablation: str, csrc: Path = None) -> str:
     return "\n".join(lines) + (_PROF_TAIL if ablation == "prof" else "")
 
 
-def start_build(name: str, csrc: Path = None, ablation: str = None):
-    """Start nvcc on conv_int8.cu alone (of ``csrc``, by default the
-    package's; altered by ``ablation``) into ``_build/probe/<name>.so``.
-    Returns the job for finish_build."""
+def start_build(name: str, csrc: Path = None, ablation: str = None,
+                source: str = SOURCE):
+    """Start nvcc on ``source`` alone (conv_int8.cu unless named; of
+    ``csrc``, by default the package's; altered by ``ablation``) into
+    ``_build/probe/<name>.so``. Returns the job for finish_build."""
     csrc = Path(csrc or build.CSRC_DIR)
     work = PROBE_DIR / name
     shutil.rmtree(work, ignore_errors=True)
@@ -151,20 +152,22 @@ def start_build(name: str, csrc: Path = None, ablation: str = None):
         (work / SOURCE).write_text(patched_source(ablation, csrc))
     out = PROBE_DIR / f"{name}.so"
     cmd = [build.nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out),
-           str(work / SOURCE)]
+           str(work / source)]
     return name, out, cmd, subprocess.Popen(
         cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
 
 
 def finish_build(job) -> ctypes.CDLL:
     """Wait for a start_build job; its library, the two conv entry points
-    declared (and ``yolo_direct_prof`` where the copy has it)."""
+    declared where it has them (and ``yolo_direct_prof`` where the copy has
+    it)."""
     name, out, cmd, proc = job
     build._run(cmd, proc)
     lib = ctypes.CDLL(str(out))
     for entry in ("yolo_conv2d_int8", "yolo_conv2d_int8_q"):
-        fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = build.SIGNATURES[entry]
+        if hasattr(lib, entry):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = build.SIGNATURES[entry]
     if hasattr(lib, "yolo_direct_prof"):
         lib.yolo_direct_prof.argtypes = [
             ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]

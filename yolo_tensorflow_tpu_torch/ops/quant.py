@@ -50,13 +50,24 @@ def head_conv_layers(specs) -> set:
             if isinstance(spec, S.Detect) and i > 0}
 
 
+def _calibration_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for the card where there is
+    none, as ``Detector`` does."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("calibration on device='cuda' needs a CUDA device "
+                           "and torch.cuda.is_available() is false")
+    return device
+
+
 def calibrate_activations(specs, params, batches, *, cfg,
-                          device="cpu") -> Dict[str, float]:
+                          device="cuda") -> Dict[str, float]:
     """Run float32 inference of the folded ``params`` (port layout) on
-    ``device`` over calibration batches (uint8 (B, H, W, 3) each),
-    recording every conv's input range as the JAX package does: the
-    PERCENTILE of |x| per batch, the max over batches. Returns
-    {layer_key: range / 127}."""
+    ``device`` (the card unless the caller asks for the CPU) over
+    calibration batches (uint8 (B, H, W, 3) each), recording every conv's
+    input range as the JAX package does: the PERCENTILE of |x| per batch,
+    the max over batches. Returns {layer_key: range / 127}."""
+    device = _calibration_device(device)
     net = engine.Network(specs, params, device=device)
     maxes: Dict[str, float] = {}
 
@@ -108,11 +119,13 @@ def quantize_params(specs, folded_params, act_scales: Dict[str, float]):
 # The all-int8-activation path: int8 tensors between layers
 
 def calibrate_outputs(specs, params, batches, *, cfg,
-                      device="cpu") -> Dict[int, float]:
+                      device="cuda") -> Dict[int, float]:
     """Scales of every Conv, Route and Shortcut output, and of the
     normalized input (index -1), for ``apply_int8``: float32 inference of
-    the folded ``params`` on ``device`` over the calibration batches, the
-    PERCENTILE of |output| per batch, the max over batches, / 127."""
+    the folded ``params`` on ``device`` (the card unless the caller asks for
+    the CPU) over the calibration batches, the PERCENTILE of |output| per
+    batch, the max over batches, / 127."""
+    device = _calibration_device(device)
     net = engine.Network(specs, params, device=device)
     maxes: Dict[int, float] = {}
 

@@ -1,17 +1,20 @@
 """Fixed-shape batched NMS: top-K candidates, then greedy NMS on the device.
 
 Counterpart of yolo_tensorflow_tpu/post/nms.py, which was XLA (top-k plus a
-``lax.while_loop``), not a Pallas kernel. For the whole batch at once:
-  1. exact top-K candidates of each image's scores (scores at or below the
-     confidence threshold are sunk to -1), tied scores in index order as
-     ``lax.top_k`` gives them: a stable ``torch.sort`` and gathers,
+``lax.while_loop``), not a Pallas kernel. For the whole batch at once, with
+a valid mask and count in place of dynamic shapes:
+  1. the exact top-K candidates of each image's scores (scores at or below
+     the confidence threshold are inactive), tied scores in index order as
+     ``lax.top_k`` gives them,
   2. exact greedy NMS of the K ranked candidates and the first
-     ``max_detections`` kept ones, with a valid mask and count in place of
-     dynamic shapes: ``ops.kernels.nms.greedy_select``, the CUDA kernel on a
-     CUDA input (one launch, no host sync), the plain batched fixpoint on a
-     CPU one.
-``batched_nms_scored_plain`` runs step 2 as the plain version on any device
-(the card's tests compare the kernel with it). ``batched_nms`` (and its
+     ``max_detections`` kept ones.
+``batched_nms_scored`` does both in one call of ``ops.kernels.nms.
+greedy_nms``: on a CUDA input one launch of the NMS kernel (no sort, no
+gather, no host sync), on a CPU one the plain version. The plain version
+(``batched_nms_scored_plain``, on any device; the card's tests compare the
+kernel with it) is ``ops.kernels.nms.select_candidates``, a stable
+``torch.sort`` of the masked scores and gathers, then
+``greedy_select_plain``, the batched fixpoint. ``batched_nms`` (and its
 ``batched_nms_plain`` twin) scores a materialized decode first: label =
 argmax of the class probabilities, score = conf * their max in float32.
 """
@@ -61,53 +64,28 @@ def fetch_detections(dets: Detections) -> Detections:
     return unpack_detections(pack_detections(dets).cpu().numpy())
 
 
-def select_candidates(boxes_xyxy, scores, labels, *,
-                      conf_threshold: float, num_candidates: int):
-    """(B, N, 4), (B, N), (B, N) -> the top K = min(num_candidates, N)
-    candidates of each image in descending order of their masked scores:
-    boxes (B, K, 4), scores (B, K), labels (B, K). Equal scores keep their
-    index order, as the TPU package's ``lax.top_k`` does (``torch.topk``
-    promises no order among them, and bf16 scores tie often)."""
-    k = min(num_candidates, scores.shape[1])
-    masked = torch.where(scores > conf_threshold, scores,
-                         torch.full_like(scores, -1.0))
-    top_scores, idx = torch.sort(masked, dim=1, descending=True, stable=True)
-    top_scores, idx = top_scores[:, :k], idx[:, :k]
-    top_boxes = boxes_xyxy.gather(1, idx[:, :, None].expand(-1, -1, 4))
-    return top_boxes, top_scores, labels.gather(1, idx)
-
-
-def _nms(select, boxes_xyxy, scores, labels, *, conf_threshold,
-         iou_threshold, max_detections, num_candidates, class_aware):
-    candidates = select_candidates(boxes_xyxy, scores, labels,
-                                   conf_threshold=conf_threshold,
-                                   num_candidates=num_candidates)
-    return Detections(*select(*candidates, conf_threshold=conf_threshold,
-                              iou_threshold=iou_threshold,
-                              max_detections=max_detections,
-                              class_aware=class_aware))
-
-
 def batched_nms_scored(boxes_xyxy, scores, labels, *, conf_threshold=0.5,
                        iou_threshold=0.5, max_detections=20,
                        num_candidates=256, class_aware=False) -> Detections:
-    """NMS on already-scored boxes (B, N, 4), (B, N), (B, N) int32: top-k,
-    then the greedy NMS kernel (or its plain version on the CPU)."""
-    return _nms(K.greedy_select, boxes_xyxy, scores, labels,
-                conf_threshold=conf_threshold, iou_threshold=iou_threshold,
-                max_detections=max_detections,
-                num_candidates=num_candidates, class_aware=class_aware)
+    """NMS on already-scored boxes (B, N, 4), (B, N), (B, N) int32: one
+    call of the NMS operator (the kernel on a CUDA input, its plain version
+    on a CPU one)."""
+    return Detections(*K.greedy_nms(
+        boxes_xyxy, scores, labels, conf_threshold=conf_threshold,
+        iou_threshold=iou_threshold, max_detections=max_detections,
+        num_candidates=num_candidates, class_aware=class_aware))
 
 
 def batched_nms_scored_plain(boxes_xyxy, scores, labels, *,
                              conf_threshold=0.5, iou_threshold=0.5,
                              max_detections=20, num_candidates=256,
                              class_aware=False) -> Detections:
-    """``batched_nms_scored`` with the plain greedy step on any device."""
-    return _nms(K.greedy_select_plain, boxes_xyxy, scores, labels,
-                conf_threshold=conf_threshold, iou_threshold=iou_threshold,
-                max_detections=max_detections,
-                num_candidates=num_candidates, class_aware=class_aware)
+    """``batched_nms_scored``'s plain version on any device:
+    ``select_candidates``, then ``greedy_select_plain``."""
+    return Detections(*K.nms_plain(
+        boxes_xyxy, scores, labels, conf_threshold=conf_threshold,
+        iou_threshold=iou_threshold, max_detections=max_detections,
+        num_candidates=num_candidates, class_aware=class_aware))
 
 
 def score_classes(conf, class_probs):
@@ -123,8 +101,8 @@ def batched_nms(boxes_xyxy, conf, class_probs, *, conf_threshold=0.5,
                 iou_threshold=0.5, max_detections=20, num_candidates=256,
                 class_aware=False) -> Detections:
     """Score (B, N) conf and (B, N, C) class probabilities, then
-    ``batched_nms_scored``: top-k and the greedy NMS kernel (its plain
-    version on the CPU)."""
+    ``batched_nms_scored``: the NMS kernel (its plain version on the
+    CPU)."""
     scores, labels = score_classes(conf, class_probs)
     return batched_nms_scored(boxes_xyxy, scores, labels,
                               conf_threshold=conf_threshold,
@@ -137,7 +115,7 @@ def batched_nms(boxes_xyxy, conf, class_probs, *, conf_threshold=0.5,
 def batched_nms_plain(boxes_xyxy, conf, class_probs, *, conf_threshold=0.5,
                       iou_threshold=0.5, max_detections=20,
                       num_candidates=256, class_aware=False) -> Detections:
-    """``batched_nms`` with the plain greedy step on any device."""
+    """``batched_nms``'s plain version on any device."""
     scores, labels = score_classes(conf, class_probs)
     return batched_nms_scored_plain(boxes_xyxy, scores, labels,
                                     conf_threshold=conf_threshold,
