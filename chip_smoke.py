@@ -305,13 +305,28 @@ failure is caught):
              gradients equal, and equal to the one-process step over the
              whole batch; (c) run_training over a coordinator of one rank,
              phase 22's yolov2-416 setup for DP_RUN_STEPS steps, its costs
-             against the plain run's.
+             against the plain run's;
+ 37. shapes: the synthetic-shapes tools (yolo_tensorflow_tpu_torch/tools/):
+             (a) SHAPES_SCENES hard scenes at 416 and at 160 rendered on the
+             host without cv2, every box inside its image with positive
+             extent, scenes/s, no cv2 module loaded; (b) the in-process demo
+             (synthetic_train_demo.main(DEMO_STEPS, "yolov3-tiny"), the easy
+             task in f32 from scratch): its float mAP@0.5 on the held-out
+             scenes at least DEMO_FLOOR, the flip-TTA, int8 PTQ and int8
+             QAT legs in [0, 1], every hand kernel it launches counted (the
+             counts join the kernels line); (c) flagship_train at yolov3-416
+             cut to FLAGSHIP_PLUMBING in its own process: three fresh CLI
+             processes (the run, its resume, the QAT leg), the resume from
+             the halfway checkpoint, int8-qat.npz, and the five-leg suite's
+             JSON as its last line.
 Then a JSON line describing each kernel (conv3x3_bnstat: launches, ms,
 bound, plain and library ms all over one step each of yolov3 (phases 8 and
 10), yolov2-416 and darknet19-256 (phases 19 and 21), its launches also
-over phase 33's QAT step and phase 36's sharded step; conv_int8_direct:
-its launches in phase 7's int8 forward, its numbers at yolov3's first conv
-from phase 6), and last the JSON result line.
+over phase 33's QAT step, phase 36's sharded step and phase 37's demo;
+conv_int8_direct: its launches in phase 7's int8 forward and phase 37's
+demo, its numbers at yolov3's first conv from phase 6; decode, NMS and
+conv2d_int8: their launches also over phase 37's demo), and last the JSON
+result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
 weights in the repository), at full width and depth: Darknet-53 + FPN
@@ -810,6 +825,11 @@ DP_RUN_STEPS = 4         # phase 36 (c): run_training steps of each run
 # phase 36 (b): tests/test_torch_parallel.py's tolerances for parameters
 # and running statistics after one step
 DP_LEAF_TOL = dict(rtol=5e-4, atol=5e-6)
+SHAPES_SCENES = 64       # phase 37 (a): hard scenes at each of 416, 160
+DEMO_STEPS = 1200        # phase 37 (b): the demo's easy run, f32
+DEMO_FLOOR = 0.25        # its float mAP@0.5: half the TPU record's 0.52 at
+                         # 1200 steps, both runs from scratch
+FLAGSHIP_PLUMBING = dict(n_train=32, n_val=8, steps=4, qat_steps=2, every=2)
 
 
 def require(cond, msg):
@@ -6574,6 +6594,131 @@ def data_parallel_phase(cfg, specs, n_fused, dev, smi, tmp):
     return launches
 
 
+def shapes_generator(scenes):
+    """Phase 37 (a): SHAPES_SCENES hard scenes at 416 and at 160 rendered
+    on the card's host (tools.raster, no cv2), every box inside its image
+    with positive extent (tests/test_synthetic_task.py's gates)."""
+    from yolo_tensorflow_tpu_torch.tools import synthetic_train_demo as SD
+    rng = np.random.default_rng(SEED + 37)
+    for size in (416, 160):
+        t0 = time.perf_counter()
+        n_boxes, seen = 0, set()
+        for _ in range(scenes):
+            img, boxes = SD.make_scene(rng, hard=True, size=size)
+            require(img.shape == (size, size, 3) and img.dtype == np.uint8,
+                    f"37 (a) scene {img.shape} {img.dtype}")
+            cx, cy, w, h, cls = boxes.T
+            eps = 1 / size
+            require(len(boxes) > 0 and (w > 0).all() and (h > 0).all()
+                    and (cx - w / 2 >= -eps).all()
+                    and (cy - h / 2 >= -eps).all()
+                    and (cx + w / 2 <= 1 + eps).all()
+                    and (cy + h / 2 <= 1 + eps).all()
+                    and ((cls >= 0) & (cls < len(SD.HARD_CLASSES))).all(),
+                    f"37 (a) a box outside its {size} scene or empty: "
+                    f"{boxes}")
+            n_boxes += len(boxes)
+            seen |= set(cls.astype(int).tolist())
+        dt = time.perf_counter() - t0
+        print(f"[37 shapes] (a) {scenes} hard scenes at {size}: "
+              f"{scenes / dt:.1f} scenes/s on the host, {n_boxes} boxes, "
+              f"{len(seen)} of 12 classes, every box inside with positive "
+              "extent")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] == "cv2")
+    require(not bad, f"37 (a) the generator loaded {bad}")
+
+
+def shapes_demo(dev):
+    """Phase 37 (b): tools.synthetic_train_demo.main on the easy task as
+    the tool trains it (yolov3-tiny from scratch, f32, batch 32), its five
+    legs scored; the float mAP@0.5 must reach DEMO_FLOOR. Returns the
+    launches of each hand kernel over the run ({wrapper: n}, conv_bnstat
+    under "bnstat")."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
+    from yolo_tensorflow_tpu_torch.tools import synthetic_train_demo as SD
+    torch.backends.cudnn.benchmark = False      # a user's default
+    t0 = time.perf_counter()
+    reset_counts()
+    BS.launches = 0
+    legs = SD.main(DEMO_STEPS, model="yolov3-tiny", device=dev.type)
+    torch.cuda.synchronize()
+    launched = dict(counts(), bnstat=BS.launches)
+    dt = time.perf_counter() - t0
+    require(set(legs) == {"float", "flip-TTA[darknet]", "flip-TTA[corrected]",
+                          "int8 PTQ", "int8 QAT"}, f"37 (b) legs {legs}")
+    require(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in legs.values()),
+            f"37 (b) a leg outside [0, 1]: {legs}")
+    require(legs["float"] >= DEMO_FLOOR,
+            f"37 (b) the demo's float mAP@0.5 after {DEMO_STEPS} steps is "
+            f"{legs['float']:.4f}, under {DEMO_FLOOR}: the port does not "
+            "learn the task as the TPU package does")
+    for name in ("decode", "nms", "int8", "int8_direct", "bnstat"):
+        require(launched[name] > 0, f"37 (b) the demo launched no {name} "
+                f"kernel: {launched}")
+    print(f"[37 shapes] (b) synthetic_train_demo.main({DEMO_STEPS}, "
+          f"yolov3-tiny) easy, f32: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in legs.items())
+          + f" (floor {DEMO_FLOOR} on the float leg); {dt:.1f} s; hand "
+          f"kernel launches {launched}")
+    return launched
+
+
+def shapes_flagship(dev, tmp):
+    """Phase 37 (c): tools.flagship_train at yolov3-416 in its own process,
+    cut to FLAGSHIP_PLUMBING: the dataset, the interrupted run and its
+    resume, the QAT leg, each a fresh CLI process, then the five-leg
+    suite."""
+    p = FLAGSHIP_PLUMBING
+    root = os.path.join(tmp, "flagship")
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("FLAGSHIP_SIZE", "FLAGSHIP_MODEL")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "yolo_tensorflow_tpu_torch.tools."
+         "flagship_train", "--root", root, "--steps", str(p["steps"]),
+         "--n-train", str(p["n_train"]), "--n-val", str(p["n_val"]),
+         "--qat-steps", str(p["qat_steps"]), "--eval-every",
+         str(p["every"]), "--save-every", str(p["every"]), "--device",
+         dev.type],
+        capture_output=True, text=True, env=env, timeout=900)
+    dt = time.perf_counter() - t0
+    require(proc.returncode == 0, "37 (c) flagship_train failed: "
+            f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    with open(os.path.join(root, "train.log")) as f:
+        log = f.read()
+    n_cli = log.count("\n$ ")
+    resumed = f"resumed from step {p['steps'] // 2}"
+    require(n_cli == 3, f"37 (c) {n_cli} CLI processes, expected 3")
+    require(resumed in log, f"37 (c) the log lacks '{resumed}'")
+    require(os.path.exists(os.path.join(root, "ckpts", "int8-qat.npz")),
+            "37 (c) the QAT leg shipped no int8-qat.npz")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    legs = {"float bf16", "flip-TTA[darknet]", "flip-TTA[corrected]",
+            "int8 PTQ", "int8 QAT"}
+    require(out.get("flagship") == "yolov3-416 hard12"
+            and out.get("step") == p["steps"]
+            and set(out.get("results", {})) == legs
+            and all(0.0 <= v <= 1.0 for v in out["results"].values()),
+            f"37 (c) the suite's line: {out}")
+    times = re.findall(r"-> exit 0 in (\d+)s", proc.stdout)
+    print(f"[37 shapes] (c) flagship_train yolov3-416, {p['n_train']} + "
+          f"{p['n_val']} scenes, {p['steps'] // 2} steps then resumed to "
+          f"{p['steps']}, {p['qat_steps']} QAT steps: {n_cli} CLI processes "
+          f"({', '.join(times)} s), '{resumed}', int8-qat.npz written; "
+          f"suite {out['results']} (untrained: plumbing only); {dt:.1f} s")
+
+
+def shapes_phase(dev, tmp):
+    """Phase 37: the synthetic-shapes tools (yolo_tensorflow_tpu_torch/
+    tools/). Returns (b)'s hand kernel launches."""
+    t0 = time.perf_counter()
+    shapes_generator(SHAPES_SCENES)
+    launched = shapes_demo(dev)
+    shapes_flagship(dev, tmp)
+    print(f"[37 shapes] {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -6849,6 +6994,17 @@ def main(argv=None):
         bnstat_launches += data_parallel_phase(cfg, specs, n_fused, dev, smi,
                                                tmp)
         elapsed("36")
+
+        # 37. the synthetic-shapes tools: scenes without cv2, the demo
+        # learns, the flagship recipe's plumbing at yolov3-416
+        shapes = shapes_phase(dev, tmp)
+        launches += shapes["decode"]
+        nms_launches += shapes["nms"]
+        int8_launches += shapes["int8"]
+        q_launches += shapes["int8_q"]
+        direct_launches += shapes["int8_direct"]
+        bnstat_launches += shapes["bnstat"]
+        elapsed("37")
 
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",

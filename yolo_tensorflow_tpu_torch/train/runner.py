@@ -472,6 +472,7 @@ def _train(args, read_fn, mesh):
     rng = np.random.default_rng(1)
     size = cfg.input_size
     step_i = start_step
+    saved_at = None     # the step last checkpointed in this run
     t_last = time.time()
     while step_i < total_steps:
         for images, truths in loader.epoch():
@@ -497,6 +498,7 @@ def _train(args, read_fn, mesh):
                       f"{images.shape[1]}", flush=True)
             if lead and step_i % args.save_every == 0:
                 path = ckpt.save_train_state(state, args.ckpt_dir, step_i)
+                saved_at = step_i
                 print(f"saved {path}")
             if lead and val_samples and eval_every \
                     and step_i % eval_every == 0:
@@ -515,7 +517,7 @@ def _train(args, read_fn, mesh):
                           flush=True)
             if step_i >= total_steps:
                 break
-    if lead:
+    if lead and saved_at != step_i:
         ckpt.save_train_state(state, args.ckpt_dir, step_i)
     if lead and qat and state.qat_scales:
         # ship what was trained: detect, eval and stream load this npz as
