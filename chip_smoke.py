@@ -16,7 +16,9 @@ failure is caught):
   2. build:  nvcc builds the CUDA kernels (decode, int8 conv, fused conv +
              BN statistics, the NMS stage; the two convs share
              csrc/igemm_sm90.cuh) from
-             yolo_tensorflow_tpu_torch/csrc, one nvcc process per source;
+             yolo_tensorflow_tpu_torch/csrc, one nvcc process per source,
+             then starts phase 40's two altered copies of
+             csrc/conv_int8.cu, which compile beside phases 3-39;
   3. kernel: the decode kernel against its plain PyTorch version on the same
              CUDA tensors: at the yolov3-416 head shapes (sigmoid classes,
              three scales in one launch) and at the yolov2 and
@@ -137,8 +139,9 @@ failure is caught):
              its plain version, f32 and bf16, at every distinct 3x3
              stride-1 BN conv of yolov2 at each of run_training's
              multi-scale sizes 320..608 (grids 10..19; the 1280 -> 1024
-             conv after the reorg + route among them) at TRAIN_BATCH and
-             of darknet19-256 at CLS_BATCH; the bf16 shapes of yolov2-416
+             conv after the reorg + route among them) at TRAIN_BATCH at
+             416 and BNSTAT_SCALE_BATCH at the other sizes, and of
+             darknet19-256 at CLS_BATCH; the bf16 shapes of yolov2-416
              and darknet19-256 timed (kernel, bound, plain, cuDNN's conv +
              two sums, summed over a training forward);
  20. f32 train families (B): one f32 onepass step at batch 2 on the card
@@ -314,8 +317,10 @@ failure is caught):
              task in f32 from scratch): its float mAP@0.5 on the held-out
              scenes at least DEMO_FLOOR, the flip-TTA, int8 PTQ and int8
              QAT legs in [0, 1], every hand kernel it launches counted (the
-             counts join the kernels line); (c) flagship_train at yolov3-416
-             cut to FLAGSHIP_PLUMBING in its own process: three fresh CLI
+             counts join the kernels line); (c) flagship_train at
+             FLAGSHIP_SMALL (the plumbing of its yolov3-416 recipe), cut to
+             FLAGSHIP_PLUMBING, in its own process beside (a) and (b):
+             three fresh CLI
              processes (the run, its resume, the QAT leg), the resume from
              the halfway checkpoint, int8-qat.npz, and the five-leg suite's
              JSON as its last line.
@@ -362,16 +367,31 @@ failure is caught):
              with num_spatial 2 over the two ranks' group, phase 22's
              yolov2-416 setup for SPATIAL_RUN_STEPS steps: finite costs
              and the ranks' parameters equal.
+ 40. int8 ablation, training bench (yolo_tensorflow_tpu_torch/tools/
+             int8_ablate.py, bench_train.py): (a) int8_ablate's probe
+             copies of csrc/conv_int8.cu, "folded" and "sol" (their nvcc
+             started in phase 2), each equal to its plain version bit for
+             bit at yolov3-416's first conv (the direct kernel) and a 3x3
+             conv at 52^2 (wgmma), B=ABLATE_CHECK_BATCH; (b) its five rows
+             (bf16 reference, the kernel's linear epilogue and a leaky
+             pass, the fused leaky epilogue, the folded copy, the
+             speed-of-light copy) at ABLATE_ROW_BATCH, ABLATE_ROW_ITERS
+             chained iterations: img/s, device ms, finite sums (not
+             bf16-ref's: its raw int8 weights overflow bf16), every kernel
+             and copy launched; (c) measure_train at BENCH_TRAIN_CELL,
+             yolov3-416 bf16: the reference's keys, a finite loss, 33
+             conv_bnstat launches a step.
 Then a JSON line describing each kernel (conv3x3_bnstat: launches, ms,
 bound, plain and library ms all over one step each of yolov3 (phases 8 and
 10), yolov2-416 and darknet19-256 (phases 19 and 21), its launches also
 over phase 33's QAT step, phase 36's sharded step, phase 37's demo,
-phase 38's three steps and phase 39's H-padding-0 launches of its two
-ranks' step;
-conv_int8_direct: its launches in phase 7's int8 forward and phase 37's
-demo, its numbers at yolov3's first conv from phase 6; decode, NMS and
-conv2d_int8: their launches also over phase 37's demo and phase 39's
-spatial Detectors, on halo rows), and last the JSON result line.
+phase 38's three steps, phase 39's H-padding-0 launches of its two
+ranks' step and phase 40's measure_train;
+conv_int8_direct: its launches in phase 7's int8 forward, phase 37's
+demo and phase 40's rows, its numbers at yolov3's first conv from phase 6;
+decode, NMS and conv2d_int8: their launches also over phase 37's demo and
+phase 39's spatial Detectors, on halo rows, conv2d_int8's over phase 40's
+rows too), and last the JSON result line.
 
 The weights are random, drawn from a numpy seed (there are no pretrained
 weights in the repository), at full width and depth: Darknet-53 + FPN
@@ -485,6 +505,7 @@ GHOST_N = 8              # phase 38: ghost8, the statistics' images of 32
 BILINEAR_TOL = dict(rtol=1e-6, atol=1e-6)   # phase 38 (c): the layer alone
 HEAD_RTOL = 1e-4         # phase 38 (c): of a head's largest magnitude
 CLS_BATCH = 64           # phase 21: darknet19-256's training batch
+BNSTAT_SCALE_BATCH = 4   # phase 19: yolov2's multi-scale sizes but 416
 RUN_BATCH = 32           # phase 22: run_training's batch ([net] batch=)
 RUN_SCENES = 64          # phase 22: synthetic 480x640 scenes
 # phase 22: the steps traced by torch.profiler, as indices of the run's
@@ -571,7 +592,7 @@ RUN_CLS_STEPS = 4
 SERVE_HTTP_BATCH = 8
 EXPORT_CANVAS = 832
 HTTP_CLIENTS = 32
-HTTP_SECONDS = 3.0
+HTTP_SECONDS = 2.0
 HTTP_POOL = 16
 HTTP_SIDES = (200, 800)
 HTTP_QUEUE = 64
@@ -781,7 +802,7 @@ CHARRNN_CELLS = {
     "lstm": "[lstm]\nbatch_normalize=1\noutput = 1024\n"}
 CHARRNN_SEED = ("In the beginning the darknet framework read a config file "
                 "and a weights file, and then it wrote text. ")
-CHARRNN_N = 512          # characters sampled
+CHARRNN_N = 128          # characters sampled
 CHARRNN_TEMP = 0.7
 PROB_TOL = dict(rtol=1e-5, atol=1e-8)
 # a [crnn] at a narrow feature map: 2 layers, 32x32, batch 4, 8 steps
@@ -824,7 +845,7 @@ CRNN_TOL = dict(rtol=1e-4, atol=1e-4)
 QAT_TOL = dict(ranges=1e-6)
 QAT_SCENES = 32          # 416x416 scenes: the evaluation needs no resize
 QAT_RUN_BATCH = 8
-QAT_RUN_STEPS = (12, 20)  # the first call (its evaluation at 12), resumed
+QAT_RUN_STEPS = (8, 12)  # the first call (its evaluation at 8), resumed
 # from phase 4's seeded .weights at a small rate: at 1e-3 the objectness of
 # a 20-step run collapsed to 0 in some runs and not in others, and the
 # export then had nothing to detect
@@ -844,7 +865,7 @@ CHARRNN_PARITY = (4, 8)  # (batch, time steps) of the card-vs-CPU step
 # 3)
 CORPUS = "chip_smoke_corpus.txt"
 CHARRNN_TRAIN = (32, 64)  # train_char_rnn's default batch and steps
-CHARRNN_ITERS = {"rnn": 10, "gru": 10, "lstm": 10}
+CHARRNN_ITERS = {"rnn": 3, "gru": 3, "lstm": 3}
 # a 4-row batch norm in each step divides by a 4-sample deviation:
 # outputs and statistics at the recurrent tests' train tolerance
 CHARRNN_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -875,18 +896,25 @@ DP_RUN_STEPS = 4         # phase 36 (c): run_training steps of each run
 # and running statistics after one step
 DP_LEAF_TOL = dict(rtol=5e-4, atol=5e-6)
 SHAPES_SCENES = 64       # phase 37 (a): hard scenes at each of 416, 160
-DEMO_STEPS = 1200        # phase 37 (b): the demo's easy run, f32
-DEMO_FLOOR = 0.25        # its float mAP@0.5: half the TPU record's 0.52 at
-                         # 1200 steps, both runs from scratch
+DEMO_STEPS = 400         # phase 37 (b): the demo's easy run, f32
+DEMO_FLOOR = 0.25        # its float mAP@0.5 after DEMO_STEPS: half the TPU
+                         # record's 0.52 at 1200 steps, both from scratch
 SPATIAL_BATCH = 2        # phase 39 (b), (c): yolov3-416 f32, 208 rows a rank
 SPATIAL_TURNS = 2        # phase 39 (b): samples of SPATIAL_STEPS bf16 steps
-SPATIAL_STEPS = 2
-SPATIAL_RUN_STEPS = 4    # phase 39 (d): run_training with num_spatial 2
+SPATIAL_STEPS = 1
+SPATIAL_RUN_STEPS = 2    # phase 39 (d): run_training with num_spatial 2
 # phase 39 (c): the bf16 network's heads, two spatial ranks against one
 # process, relative L2 per head: the convs of a block of rows take other
 # cuDNN algorithms than the whole image's, each rounding its bf16 output
 SPATIAL_BF16_HEAD = 2e-2
 FLAGSHIP_PLUMBING = dict(n_train=32, n_val=8, steps=4, qat_steps=2, every=2)
+# phase 37 (c) checks the recipe's plumbing: the tool's own FLAGSHIP_MODEL
+# and FLAGSHIP_SIZE run its phases on a smaller model (the CPU test at 96)
+FLAGSHIP_SMALL = ("yolov3-tiny", 160)
+ABLATE_CHECK_BATCH = 8   # phase 40 (a): the probe copies against plain
+ABLATE_ROW_BATCH = 64    # phase 40 (b): the five rows, chained iterations
+ABLATE_ROW_ITERS = 2
+BENCH_TRAIN_CELL = dict(batch=32, steps=2, repeats=1)   # phase 40 (c)
 
 
 def require(cond, msg):
@@ -1869,8 +1897,9 @@ def darknet19_bnstat_phase(dev):
     """Phase 19 (A). conv_bnstat against its plain version at Darknet-19's
     shapes, f32 and bf16: every distinct 3x3 stride-1 BN conv of yolov2 at
     each of run_training's multi-scale sizes (320..608, grids 10..19; the
-    1280 -> 1024 conv after the route among them) at TRAIN_BATCH, and of
-    darknet19-256 at CLS_BATCH. The bf16 shapes of yolov2-416 and
+    1280 -> 1024 conv after the route among them) at TRAIN_BATCH at 416
+    and BNSTAT_SCALE_BATCH at the others, and of darknet19-256 at
+    CLS_BATCH. The bf16 shapes of yolov2-416 and
     darknet19-256 are timed: kernel, bound, plain and cuDNN's conv + two
     sums, summed over a training forward's launches. Returns (max |y err|,
     {model: Counter of those sums})."""
@@ -1883,9 +1912,10 @@ def darknet19_bnstat_phase(dev):
     v2_specs, cls_specs = C.build_specs(v2), C.build_specs(cls)
     require(v2.input_size in runner.MULTISCALE_SIZES,
             f"{v2.input_size} is not a multi-scale size")
-    groups = [("yolov2", s, TRAIN_BATCH, bnstat_shapes(
-        v2_specs, dataclasses.replace(v2, input_size=s)))
-        for s in runner.MULTISCALE_SIZES] + [
+    groups = [("yolov2", s, TRAIN_BATCH if s == v2.input_size
+               else BNSTAT_SCALE_BATCH, bnstat_shapes(
+                   v2_specs, dataclasses.replace(v2, input_size=s)))
+              for s in runner.MULTISCALE_SIZES] + [
         ("darknet19-classifier", cls.input_size, CLS_BATCH,
          bnstat_shapes(cls_specs, cls))]
     require(any(cin == 1280 for (_, cin, _) in groups[0][3]),
@@ -1930,7 +1960,8 @@ def darknet19_bnstat_phase(dev):
     grids = [s // 32 for s in runner.MULTISCALE_SIZES]
     print(f"[19 bnstat darknet19] {cases} cases (yolov2 at "
           f"{list(runner.MULTISCALE_SIZES)}, head grids {grids}, B="
-          f"{TRAIN_BATCH}; darknet19-256 B={CLS_BATCH}; f32 and bf16) equal "
+          f"{TRAIN_BATCH} at {v2.input_size}, {BNSTAT_SCALE_BATCH} at the "
+          f"others; darknet19-256 B={CLS_BATCH}; f32 and bf16) equal "
           f"to plain within BNSTAT_TOL, max |y err| {max_err:.3g}; "
           f"(instance, BN) taken: {dict(used)}")
     for model, tot in tots.items():
@@ -3423,7 +3454,7 @@ def int8_act_phase(specs, cfg, path, shapes, qparams, calib, imgs, dev,
             def launcher(lib):
                 return lambda: Q8._launch_q(xq, s_in, w_q, s_w, b, stride,
                                             k // 2, "leaky", s_out, lib)
-            own, par = launcher(build.load()), launcher(parent)
+            own, par = launcher(None), launcher(parent)
             require(torch.equal(par(), fn()), f"18 int8-in k{k} "
                     f"{cin}->{cout}: the parent's kernel differs")
             g_ms, p_ms = [], []
@@ -4115,13 +4146,13 @@ def wait_cli(label, proc, timeout=600):
 
 
 def export_phase(cfg, path, qparams, n_int8, dev, smi, tmp):
-    """Phase 27: the CLI's convert, then its export of the bf16 fused
-    letterbox Detector (batch SERVE_HTTP_BATCH, canvas EXPORT_CANVAS) and of
-    the int8 bf16 Detector (batch SERVE_HTTP_BATCH, the input size), two
-    processes at once; each artifact loaded with LoadedArtifact, its five
-    outputs equal to the Detector's on the same inputs, its kernels
-    launched once per call (the int8 conv n_int8 times), no host sync, and
-    its call time beside the Detector's."""
+    """Phase 27: the CLI's convert (in this process), then its export of the
+    bf16 fused letterbox Detector (batch SERVE_HTTP_BATCH, canvas
+    EXPORT_CANVAS) and of the int8 bf16 Detector (batch SERVE_HTTP_BATCH,
+    the input size), two processes at once; each artifact loaded with
+    LoadedArtifact, its five outputs equal to the Detector's on the same
+    inputs, its kernels launched once per call (the int8 conv n_int8
+    times), no host sync, and its call time beside the Detector's."""
     from yolo_tensorflow_tpu_torch.export import LoadedArtifact
     from yolo_tensorflow_tpu_torch.io.checkpoint import save_params_npz
     from yolo_tensorflow_tpu_torch.pipeline import Detector
@@ -4131,9 +4162,9 @@ def export_phase(cfg, path, qparams, n_int8, dev, smi, tmp):
     t0 = time.perf_counter()
     common = ["--model", MODEL, "--bf16", "--batch", str(SERVE_HTTP_BATCH),
               "--conf-threshold", str(CONF), "--device", "cuda"]
+    _cli("27 convert", ["convert", "--model", MODEL, "--weights", path,
+                        "--out", npz])
     qproc = run_cli(["export", "--weights", qnpz, "--out", qart, *common])
-    wait_cli("27 convert", run_cli(["convert", "--model", MODEL,
-                                    "--weights", path, "--out", npz]))
     fproc = run_cli(["export", "--weights", npz, "--out", art, "--letterbox",
                      "--fused-letterbox", "--canvas-size",
                      str(EXPORT_CANVAS), *common])
@@ -6476,9 +6507,20 @@ def dp_rank(rank, port, out, device):
         P.shutdown_distributed()
 
 
-def dp_two_ranks(cfg, specs, n_fused, dev, smi, tmp):
-    """Phase 36 (b): two ranks spawned on the one card (``dp_rank``), then
-    the one-process step over the whole DP_TWO_BATCH batch on the card,
+def gloo_ranks(rank, dp_port, dp_out, sp_port, sp_out, device, root,
+               qpath):
+    """One of the two ranks that phase 39 spawns on the one card for
+    phase 36 (b) (``dp_rank``, its own process group) and then phase 39
+    (b)-(d) (``sp_rank``): one pair of processes for both."""
+    dp_rank(rank, dp_port, dp_out, device)
+    sp_rank(rank, sp_port, sp_out, device, root, qpath)
+
+
+def dp_two_ranks(cfg, specs, n_fused, dev, smi, out, spawn_s):
+    """Phase 36 (b), from the two ranks' files in ``out`` (``dp_rank``, run
+    by the ranks phase 39 spawns; ``spawn_s``: their seconds with phase
+    39's work), then the one-process step over the whole DP_TWO_BATCH
+    batch on the card,
     and over the same batch with its halves swapped: the distance between
     those two correct float32 evaluations, which sum in other orders, is
     GRAD_FLOOR's floor (at full depth a permuted batch alone moves some
@@ -6489,19 +6531,10 @@ def dp_two_ranks(cfg, specs, n_fused, dev, smi, tmp):
     Both ranks call the same all-reduces: one a BN conv forward and one
     backward (onepass), one of the loss's metric sums, one gradient
     bucket."""
-    import torch.multiprocessing as mp
     from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.models.specs import Conv
-    from yolo_tensorflow_tpu_torch.parallel import mesh as P
     from yolo_tensorflow_tpu_torch.train import loop as TL
     label = "36b data parallel, two ranks on one card"
-    out = os.path.join(tmp, "dp_two_ranks")
-    os.makedirs(out)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mp.start_processes(dp_rank, args=(P.free_port(), out, str(dev)),
-                       nprocs=2, start_method="spawn", join=True)
-    spawn_s = time.perf_counter() - t0
     ranks = []
     for r in range(2):
         with np.load(os.path.join(out, f"rank{r}.npz")) as f:
@@ -6554,7 +6587,8 @@ def dp_two_ranks(cfg, specs, n_fused, dev, smi, tmp):
                                what=("two ranks", "halves swapped"))
     print(f"[{label}] {cfg.name}-{cfg.input_size} f32 onepass, "
           f"{str(got['backend'])} over CUDA tensors, two ranks spawned on "
-          f"{dev} ({spawn_s:.1f} s with their start) of "
+          f"{dev} ({spawn_s:.1f} s with their start and phase 39 (b)-(d)) "
+          f"of "
           f"{DP_TWO_BATCH // 2} rows each: {n_fused} conv_bnstat launches "
           f"and {len(sizes[0])} all-reduces ({int(sizes[0].sum())} "
           f"elements, the largest {int(sizes[0].max())}) each, "
@@ -6642,12 +6676,13 @@ def dp_run_training(dev, smi, tmp):
 
 def data_parallel_phase(cfg, specs, n_fused, dev, smi, tmp):
     """Phase 36: parallel/mesh.py on the card (``dp_one_card``,
-    ``dp_two_ranks``, ``dp_run_training``). Returns the conv_bnstat
-    launches of (a)'s sharded step."""
+    ``dp_run_training``; ``dp_two_ranks`` runs in phase 39, whose two
+    spawned ranks take its step too). Returns the conv_bnstat launches of
+    (a)'s sharded step."""
     t0 = time.perf_counter()
     launches = dp_one_card(cfg, specs, n_fused, dev, smi, tmp)
     torch.backends.cudnn.benchmark = False
-    dp_two_ranks(cfg, specs, n_fused, dev, smi, tmp)
+    # (b): the ranks that phase 39 spawns run it first (``gloo_ranks``)
     dp_run_training(dev, smi, tmp)
     print(f"[36 data parallel] {time.perf_counter() - t0:.1f} s")
     return launches
@@ -6722,27 +6757,52 @@ def shapes_demo(dev):
     return launched
 
 
-def shapes_flagship(dev, tmp):
-    """Phase 37 (c): tools.flagship_train at yolov3-416 in its own process,
-    cut to FLAGSHIP_PLUMBING: the dataset, the interrupted run and its
-    resume, the QAT leg, each a fresh CLI process, then the five-leg
-    suite."""
+def start_flagship(dev, tmp):
+    """Phase 37 (c)'s process: tools.flagship_train on the card at
+    FLAGSHIP_SMALL (its FLAGSHIP_MODEL and FLAGSHIP_SIZE), cut to
+    FLAGSHIP_PLUMBING, its output into a file. It runs beside (a) and (b)
+    (its CLI processes spend most of their time starting); ``shapes_flagship``
+    waits for it."""
     p = FLAGSHIP_PLUMBING
+    model, size = FLAGSHIP_SMALL
     root = os.path.join(tmp, "flagship")
-    t0 = time.perf_counter()
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("FLAGSHIP_SIZE", "FLAGSHIP_MODEL")}
-    proc = subprocess.run(
-        [sys.executable, "-m", "yolo_tensorflow_tpu_torch.tools."
-         "flagship_train", "--root", root, "--steps", str(p["steps"]),
-         "--n-train", str(p["n_train"]), "--n-val", str(p["n_val"]),
-         "--qat-steps", str(p["qat_steps"]), "--eval-every",
-         str(p["every"]), "--save-every", str(p["every"]), "--device",
-         dev.type],
-        capture_output=True, text=True, env=env, timeout=900)
+    env = dict(os.environ, FLAGSHIP_MODEL=model, FLAGSHIP_SIZE=str(size))
+    out = os.path.join(tmp, "flagship.out")
+    with open(out, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "yolo_tensorflow_tpu_torch.tools."
+             "flagship_train", "--root", root, "--steps", str(p["steps"]),
+             "--n-train", str(p["n_train"]), "--n-val", str(p["n_val"]),
+             "--qat-steps", str(p["qat_steps"]), "--eval-every",
+             str(p["every"]), "--save-every", str(p["every"]), "--device",
+             dev.type], stdout=f, stderr=subprocess.STDOUT, text=True,
+            env=env, start_new_session=True)
+    return proc, out, root, time.perf_counter()
+
+
+def stop_group(proc):
+    """Kill ``proc`` and the processes it started (its own session)."""
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def shapes_flagship(job):
+    """Phase 37 (c): ``start_flagship``'s process ended well: the dataset,
+    the interrupted run and its resume, the QAT leg, each a fresh CLI
+    process, then the five-leg suite's JSON line."""
+    proc, out, root, t0 = job
+    p = FLAGSHIP_PLUMBING
+    model, size = FLAGSHIP_SMALL
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        stop_group(proc)
     dt = time.perf_counter() - t0
-    require(proc.returncode == 0, "37 (c) flagship_train failed: "
-            f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    with open(out) as f:
+        stdout = f.read()
+    require(rc == 0, f"37 (c) flagship_train failed: {stdout[-6000:]}")
     with open(os.path.join(root, "train.log")) as f:
         log = f.read()
     n_cli = log.count("\n$ ")
@@ -6751,20 +6811,21 @@ def shapes_flagship(dev, tmp):
     require(resumed in log, f"37 (c) the log lacks '{resumed}'")
     require(os.path.exists(os.path.join(root, "ckpts", "int8-qat.npz")),
             "37 (c) the QAT leg shipped no int8-qat.npz")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = json.loads(stdout.strip().splitlines()[-1])
     legs = {"float bf16", "flip-TTA[darknet]", "flip-TTA[corrected]",
             "int8 PTQ", "int8 QAT"}
-    require(out.get("flagship") == "yolov3-416 hard12"
+    require(out.get("flagship") == f"{model}-{size} hard12"
             and out.get("step") == p["steps"]
             and set(out.get("results", {})) == legs
             and all(0.0 <= v <= 1.0 for v in out["results"].values()),
             f"37 (c) the suite's line: {out}")
-    times = re.findall(r"-> exit 0 in (\d+)s", proc.stdout)
-    print(f"[37 shapes] (c) flagship_train yolov3-416, {p['n_train']} + "
+    times = re.findall(r"-> exit 0 in (\d+)s", stdout)
+    print(f"[37 shapes] (c) flagship_train {model}-{size}, {p['n_train']} + "
           f"{p['n_val']} scenes, {p['steps'] // 2} steps then resumed to "
           f"{p['steps']}, {p['qat_steps']} QAT steps: {n_cli} CLI processes "
           f"({', '.join(times)} s), '{resumed}', int8-qat.npz written; "
-          f"suite {out['results']} (untrained: plumbing only); {dt:.1f} s")
+          f"suite {out['results']} (untrained: plumbing only); {dt:.1f} s "
+          "beside (a) and (b)")
 
 
 def ghost_kernel_check(specs, cfg, dev):
@@ -6945,9 +7006,14 @@ def shapes_phase(dev, tmp):
     """Phase 37: the synthetic-shapes tools (yolo_tensorflow_tpu_torch/
     tools/). Returns (b)'s hand kernel launches."""
     t0 = time.perf_counter()
-    shapes_generator(SHAPES_SCENES)
-    launched = shapes_demo(dev)
-    shapes_flagship(dev, tmp)
+    flagship = start_flagship(dev, tmp)
+    try:
+        shapes_generator(SHAPES_SCENES)
+        launched = shapes_demo(dev)
+    except BaseException:
+        stop_group(flagship[0])
+        raise
+    shapes_flagship(flagship)
     print(f"[37 shapes] {time.perf_counter() - t0:.1f} s")
     return launched
 
@@ -7348,10 +7414,11 @@ def _same_detections(label, got, want):
 
 
 def spatial_ranks(cfg, specs, n_fused, dev, smi, tmp, qparams):
-    """Phase 39 (b)-(d): the two ranks (``sp_rank``) and, meanwhile
-    nothing else on the card, then the one-process references here.
-    Returns (conv_bnstat launches of both ranks' step, Counter of the
-    spatial Detectors' launches over both ranks)."""
+    """Phase 39 (b)-(d): the two ranks (``gloo_ranks``: phase 36 (b)'s
+    ``dp_rank``, then ``sp_rank``) and, meanwhile nothing else on the
+    card; phase 36 (b)'s checks (``dp_two_ranks``), then the one-process
+    references here. Returns (conv_bnstat launches of both ranks' step,
+    Counter of the spatial Detectors' launches over both ranks)."""
     import pickle
     import torch.multiprocessing as mp
     from yolo_tensorflow_tpu_torch import config as C
@@ -7367,12 +7434,18 @@ def spatial_ranks(cfg, specs, n_fused, dev, smi, tmp, qparams):
     qpath = os.path.join(out, "qparams.pkl")
     with open(qpath, "wb") as f:
         pickle.dump(qparams, f)
+    dp_out = os.path.join(tmp, "dp_two_ranks")
+    os.makedirs(dp_out)
+    ports = [P.free_port()]
+    while len(ports) < 2:
+        ports += [p for p in [P.free_port()] if p not in ports]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mp.start_processes(sp_rank, args=(P.free_port(), out, str(dev), tmp,
-                                      qpath),
+    mp.start_processes(gloo_ranks, args=(ports[0], dp_out, ports[1], out,
+                                         str(dev), tmp, qpath),
                        nprocs=2, start_method="spawn", join=True)
     spawn_s = time.perf_counter() - t0
+    dp_two_ranks(cfg, specs, n_fused, dev, smi, dp_out, spawn_s)
     ranks = []
     for r in range(2):
         with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
@@ -7438,7 +7511,8 @@ def spatial_ranks(cfg, specs, n_fused, dev, smi, tmp, qparams):
               "path"))
     print(f"[{label} (b)] {MODEL}-{cfg.input_size} f32 onepass "
           f"B={SPATIAL_BATCH}, data 1 x spatial 2, two ranks spawned on "
-          f"{dev} over gloo ({spawn_s:.1f} s for (b)-(d) with their start; "
+          f"{dev} over gloo ({spawn_s:.1f} s for (b)-(d) with their start "
+          f"and phase 36 (b); "
           f"rank 0: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                   ranks[0]["seconds"].items()) + "), "
           f"{cfg.input_size // 2} rows each: {n_fused} conv_bnstat launches "
@@ -7564,6 +7638,95 @@ def spatial_phase(specs, cfg, n_fused, dev, smi, tmp, qparams):
     return err, launches, launched
 
 
+def int8_ablate_phase(cfg, dev, smi, n_fused, copy_jobs):
+    """Phase 40: yolo_tensorflow_tpu_torch/tools/int8_ablate.py and
+    tools/bench_train.py. (a) The probe copies ``folded`` and ``sol``
+    (``copy_jobs``: their nvcc, started in phase 2) against their plain
+    versions,
+    bit for bit, at yolov3-416's first conv (the direct kernel) and a 3x3
+    conv at 52^2 (the wgmma main loop), B=ABLATE_CHECK_BATCH; (b) the five
+    rows at ABLATE_ROW_BATCH, ABLATE_ROW_ITERS chained iterations: img/s,
+    device ms, finite sums (bf16-ref's raw w_q weights overflow bf16 at
+    full depth, as the reference's row does: its sum is printed), every
+    kernel and copy launched over the rows; (c) measure_train at
+    BENCH_TRAIN_CELL, yolov3-416 bf16: the reference's keys, a finite loss,
+    conv_bnstat launched once a fused conv a step. Returns the launches
+    over (b) and (c) (conv2d_int8, its direct kernel, conv_bnstat)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
+    from yolo_tensorflow_tpu_torch.tools import bench_train as TB
+    from yolo_tensorflow_tpu_torch.tools import int8_ablate as IA
+    t0 = time.perf_counter()
+    IA.finish_copies(copy_jobs)
+    wait_s = time.perf_counter() - t0
+    model = cfg.name
+    cfg, specs, qp = IA.model_params(model, cfg.input_size, dev)
+    with torch.inference_mode():
+        checked = IA.check_copies(specs, qp, cfg.input_size, dev,
+                                  batch=ABLATE_CHECK_BATCH)
+    print(f"[40 int8_ablate (a)] the probe copies of csrc/conv_int8.cu "
+          f"equal to their plain versions bit for bit at "
+          f"B={ABLATE_CHECK_BATCH}: "
+          + "; ".join(f"{k} ({inst}, BN={bn}): max |diff| {d:g}"
+                      for k, (inst, bn, d) in checked.items())
+          + f"; launches {IA.launches}; waited {wait_s:.1f} s for their "
+          "nvcc")
+
+    rng = np.random.default_rng(SEED + 40)
+    imgs = torch.from_numpy(rng.integers(
+        0, 255, (ABLATE_ROW_BATCH, cfg.input_size, cfg.input_size, 3),
+        dtype=np.uint8)).to(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    for name in IA.launches:
+        IA.launches[name] = 0
+    rows = IA.run_rows(cfg, specs, qp, imgs, ABLATE_ROW_ITERS)
+    torch.cuda.synchronize()
+    launched = dict(counts(), **{f"copy {k}": v
+                                 for k, v in IA.launches.items()})
+    n_int8 = sum(1 for k, p in qp.items() if "w_q" in p)
+    # v0 and v1 launch the kernel at every quantized conv of every forward
+    # (a warm call and a timed one); the copies the same, v2 and SOL each
+    want = 2 * 2 * ABLATE_ROW_ITERS * n_int8
+    require(launched["int8"] == want and launched["copy folded"]
+            == launched["copy sol"] == want // 2
+            and launched["int8_direct"] == 2 * 2 * ABLATE_ROW_ITERS,
+            f"40 (b) launches {launched}, expected {want} of conv2d_int8 "
+            f"and {want // 2} of each copy")
+    for r in rows:
+        require(r["img_s"] > 0 and r["device_ms"] > 0
+                and (np.isfinite(r["sum"]) or r["name"] == "bf16-ref"),
+                f"40 (b) {r}")
+    print(f"[40 int8_ablate (b)] {model}-{cfg.input_size} backbone, "
+          f"B={ABLATE_ROW_BATCH}, {ABLATE_ROW_ITERS} chained iterations: "
+          + "; ".join(f"{r['name']} {r['img_s']:.1f} img/s, "
+                      f"{r['device_ms']:.3f} ms a forward, sum "
+                      f"{r['sum']:.6g}" for r in rows)
+          + f"; launches {launched}; on {smi}")
+
+    BS.launches = 0
+    cell = TB.measure_train(model, cfg.input_size, compute_dtype="bfloat16",
+                            device=dev.type, **BENCH_TRAIN_CELL)
+    torch.cuda.synchronize()
+    bnstat = BS.launches
+    keys = {"train_images_per_sec", "step_ms", "spread_img_per_sec",
+            "loss_finite", "compile_s", "batch", "steps_per_dispatch",
+            "model", "size", "compute_dtype", "remat_every", "bn_stats",
+            "truth_assign"}
+    steps = BENCH_TRAIN_CELL["steps"] * (1 + BENCH_TRAIN_CELL["repeats"])
+    require(set(cell) == keys and cell["loss_finite"]
+            and bnstat == n_fused * steps,
+            f"40 (c) measure_train {cell}, conv_bnstat launches {bnstat} "
+            f"(expected {n_fused * steps})")
+    print(f"[40 bench_train (c)] measure_train({model}, {cfg.input_size}, "
+          f"{BENCH_TRAIN_CELL}, bfloat16): {cell['train_images_per_sec']} "
+          f"img/s, {cell['step_ms']} ms a step, warm-up "
+          f"{cell['compile_s']} s, loss finite; {bnstat} conv_bnstat "
+          f"launches; on {smi}")
+    print(f"[40 int8_ablate] {time.perf_counter() - t0:.1f} s")
+    return {"int8": launched["int8"], "direct": launched["int8_direct"],
+            "bnstat": bnstat}
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(
@@ -7594,6 +7757,7 @@ def main(argv=None):
     from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
     from yolo_tensorflow_tpu_torch.pipeline import Detector, normalize_images
     from yolo_tensorflow_tpu_torch.post import nms as NMS
+    from yolo_tensorflow_tpu_torch.tools import int8_ablate as IA
 
     t_start = time.perf_counter()
 
@@ -7622,11 +7786,15 @@ def main(argv=None):
     lib_path = build.build(force=True)
     build_s = time.perf_counter() - t0
     build.load()
+    # int8_ablate's two altered copies of conv_int8.cu compile beside
+    # phases 3-39 (beside the package's build they slowed it by 13 s)
+    copy_jobs = IA.start_copies()
     parent_lib = (None if parent_job is None else
                   DP.finish_build(parent_job))
     parent_nms_lib = None if parent is None else parent_nms_job()
     print(f"[2 build] nvcc built {[s.name for s in build.sources()]} -> "
-          f"{lib_path.name} in {build_s:.2f} s"
+          f"{lib_path.name} in {build_s:.2f} s; int8_ablate's probe copies "
+          f"{sorted(IA.COPIES)} of conv_int8.cu started, for phase 40"
           + ("" if parent is None else
              f"; the parent's conv_int8.cu and nms.cu from {parent} in "
              f"{time.perf_counter() - t0:.2f} s"))
@@ -7635,6 +7803,7 @@ def main(argv=None):
     cfg = C.get_config(MODEL)
     specs = C.build_specs(cfg)
     decode_fields = decode_kernel_phase(dev)
+    elapsed("3")
 
     with tempfile.TemporaryDirectory() as tmp:
         # 4. main path, f32 parity
@@ -7664,6 +7833,7 @@ def main(argv=None):
         print(f"[4 f32] decode kernel launches {launches}, NMS kernel "
               f"launches {nms_launches}")
         del gpu, cpu
+        elapsed("4")
 
         # 5. main path, bf16 serving
         torch.backends.cudnn.benchmark = True
@@ -7697,21 +7867,25 @@ def main(argv=None):
               f"peak memory {peak:.2f} GiB; mean num {out.num.mean():.1f}; "
               f"on {smi}")
         del det
+        elapsed("5")
 
         # 6. int8 conv kernel vs plain, at the shapes the int8 path runs
         convs = {i for i, sp in enumerate(specs) if isinstance(sp, S.Conv)}
         int8_fields, direct_fields = int8_kernel_phase(
             int8_shapes(specs, cfg, convs - Q.head_conv_layers(specs)), dev,
             smi, parent_lib)
+        elapsed("6")
 
         # 7. the int8 main path
         (int8_launches, direct_launches, qparams, calib, int8_rate,
          int8_net_ms) = int8_path_phase(specs, cfg, path, imgs, x, dev,
                                         float_rate, kind)
         del x
+        elapsed("7")
 
         # 8. conv_bnstat kernel vs plain, at the shapes training runs
         v3_err, v3_bnstat = bnstat_kernel_phase(specs, cfg, dev)
+        elapsed("8")
 
         # 9. the f32 training path against the CPU port
         n_fused = sum(bnstat_shapes(specs, cfg).values())
@@ -7721,6 +7895,7 @@ def main(argv=None):
         imgs9, tr9 = train_inputs(cfg, TRAIN_PARITY_BATCH, SEED + 9)
         train_parity("9 f32 train", cfg, specs, params, stats, n_fused, dev,
                      imgs=imgs9, tr=tr9)
+        elapsed("9")
 
         # 10. the bf16 training path
         torch.backends.cudnn.benchmark = True
@@ -7728,7 +7903,7 @@ def main(argv=None):
                                      stats, dev, n_fused, smi,
                                      batch=TRAIN_BATCH, seed=SEED + 10)[0]
         del params, stats
-        elapsed("4-10")
+        elapsed("10")
 
         # 11-12. yolov2-416: the region head on its real path; 13. yolov1
         v2_launches, v2_path, v2_decoded = family_phases(
@@ -7739,6 +7914,7 @@ def main(argv=None):
             tmp)
         require(launches == v2_launches == 1, "decode launches per forward: "
                 f"yolov3 {launches}, yolov2 {v2_launches}, expected 1 each")
+        elapsed("11-13")
 
         # 14. the NMS kernel vs plain at the decodes of phases 5, 12 and
         # 13 and odd cases
@@ -7748,17 +7924,20 @@ def main(argv=None):
             "yolov2-416": v2_decoded, "yolov1-448": v1_decoded}, cfg, dev,
             smi, parent_nms_lib)
         del decoded, decoded_bf16, v2_decoded, v1_decoded
-        elapsed("11-14")
+        elapsed("14")
 
         # 15. the fused letterbox
         letterbox_phase(cfg, path, qparams, int8_launches, dev, smi)
+        elapsed("15")
 
         # 16. flip-TTA
         tta_phase(cfg, path, v2_path, qparams, int8_launches, dev, kind, smi)
+        elapsed("16")
 
         # 17. rolling-average smoothing
         smoothing_phase(cfg, {MODEL: path, "yolov2": v2_path,
                               "yolov1": v1_path}, dev, smi)
+        elapsed("17")
 
         # 18. the all-int8-activation path and the int8-in kernel entry
         q_launches, q_fields = int8_act_phase(
@@ -7767,16 +7946,19 @@ def main(argv=None):
             qparams, calib, imgs, dev, int8_rate, int8_net_ms, kind, smi,
             parent_lib)
         del calib
-        elapsed("15-18")
+        elapsed("18")
 
         # 19-22. training of the region, grid and classifier families:
         # conv_bnstat at Darknet-19's shapes, f32 parity, bf16 throughput
         # and run_training end to end
         dn_err, dn_bnstat = darknet19_bnstat_phase(dev)
+        elapsed("19")
         torch.backends.cudnn.benchmark = False
         families_train_parity_phase(dev)
+        elapsed("20")
         torch.backends.cudnn.benchmark = True
         family_rates = families_train_rate_phase(dev, smi)
+        elapsed("21")
         # one step each of yolov3 (phase 10), yolov2 and darknet19 (phase
         # 21); phase 19 timed the same launches
         bnstat_launches += (family_rates["yolov2"][0]
@@ -7788,28 +7970,31 @@ def main(argv=None):
         # default is False
         torch.backends.cudnn.benchmark = False
         run_training_phase(dev, smi, tmp)
-        elapsed("19-22")
+        elapsed("22")
 
         # 23. the int8 kernel at yolov1's 7x7 first conv; int8 yolov1;
         # int8 convs of any geometry
         v1_qparams, _ = int8_k7_phase(dev, kind, smi, v1_path, parent_lib)
         int8_geometry_phase(dev, kind, smi)
+        elapsed("23")
 
         # 24-26. evaluation, the classifier, in-training evaluation
         eval_phase(dev, kind, smi, tmp, v2_path, v1_qparams)
         del v1_qparams
+        elapsed("24")
         classifier_phase(dev, kind, smi, tmp)
         torch.backends.cudnn.benchmark = False
         run_training_eval_phase(dev, smi, tmp)
-        elapsed("23-26")
+        elapsed("25-26")
 
         # 27-29. the serving surface: the operators' cost, the torch.export
         # artifacts through the CLI, the HTTP server, the stream
         operators_phase(cfg, path, qparams, dev, smi)
         export_phase(cfg, path, qparams, int8_launches, dev, smi, tmp)
+        elapsed("27")
         server_phase(path, qparams, tmp, smi)
         stream_phase(cfg, path, tmp, smi)
-        elapsed("27-29")
+        elapsed("28-29")
 
         # 30. the command line; the random lr policy with no host sync
         cli_phase(dev, kind, smi, tmp, path)
@@ -7819,8 +8004,9 @@ def main(argv=None):
         # 31-32. darknet's other layers: its full YOLOv1 ([local]) and the
         # other new sections; the char-RNN family and [crnn]
         yolov1_full_phase(dev, kind, smi, tmp)
+        elapsed("31")
         charrnn_phase(dev, kind, smi, tmp)
-        elapsed("31-32")
+        elapsed("32")
 
         # 33-35. quantization-aware training and serving its int8 export;
         # training darknet's other layers and the char-RNN; the softmax
@@ -7873,6 +8059,14 @@ def main(argv=None):
         int8_launches += launched["int8"]
         direct_launches += launched["direct"]
         elapsed("39")
+
+        # 40. the int8 epilogue ablation (its probe copies against their
+        # plain versions, the five rows) and bench_train.measure_train
+        launched = int8_ablate_phase(cfg, dev, smi, n_fused, copy_jobs)
+        int8_launches += launched["int8"]
+        direct_launches += launched["direct"]
+        bnstat_launches += launched["bnstat"]
+        elapsed("40")
 
     print(json.dumps({"kernels": [{
         "name": "decode_fused", "route": "cuda",

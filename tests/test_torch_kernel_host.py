@@ -16,8 +16,8 @@ chip_smoke.py (phases 3, 6, 8 and 14).
 - ``conv_int8.direct_plan``, the direct first-conv kernel's tile plan: the
   constants it copies from ``csrc/conv_int8.cu``, 227 KB of shared memory
   at every geometry ``pick_instance`` routes to it, and ``gather`` for a
-  stride whose plan would pass that; ``direct_probe``'s markers in the
-  source.
+  stride whose plan would pass that; the markers in the source of
+  ``direct_probe``'s and ``tools/int8_ablate``'s altered copies.
 - ``decode.plan_tiles`` over the heads the port serves and odd ones: tile
   counts, first-tile indices, 16-byte alignment of every tile, the shared-
   memory budget; the limits the wrapper copies from ``csrc/decode.cu``.
@@ -49,6 +49,7 @@ from yolo_tensorflow_tpu_torch.ops.kernels import direct_probe as DP
 from yolo_tensorflow_tpu_torch.ops.kernels import igemm
 from yolo_tensorflow_tpu_torch.ops.kernels import nms as NK
 from yolo_tensorflow_tpu_torch.ops.kernels import nms_probe as NP
+from yolo_tensorflow_tpu_torch.tools import int8_ablate as IA
 
 from torch_parity import model
 
@@ -323,17 +324,25 @@ def test_direct_plan_fits(k, stride, out_bytes):
             assert plan.shared_bytes % 16 == 0
 
 
-@pytest.mark.parametrize("ablation", sorted(DP.ABLATIONS))
+# every altered copy of csrc/conv_int8.cu: direct_probe's by name, and
+# tools/int8_ablate.py's by its mapping of marker to text
+PROBE_COPIES = {**DP.ABLATIONS,
+                **{f"int8_ablate:{k}": v for k, v in IA.COPIES.items()}}
+
+
+@pytest.mark.parametrize("ablation", sorted(PROBE_COPIES))
 def test_direct_probe_copies_alter_the_source(ablation):
-    """Each altered copy that ops/kernels/direct_probe.py times finds each
-    of its markers in csrc/conv_int8.cu and puts its text in their place;
-    every marker in the source belongs to some copy."""
+    """Each altered copy that ops/kernels/direct_probe.py and
+    tools/int8_ablate.py build finds each of its markers in
+    csrc/conv_int8.cu and puts its text in their place; every marker in the
+    source belongs to some copy."""
     source = (build.CSRC_DIR / "conv_int8.cu").read_text()
-    text = DP.patched_source(ablation)
-    for name, new in DP.ABLATIONS[ablation].items():
+    texts = PROBE_COPIES[ablation]
+    text = DP.patched_source(ablation if ablation in DP.ABLATIONS else texts)
+    for name, new in texts.items():
         assert DP.marker(name) in source and DP.marker(name) not in text
         assert all(line.strip() in text for line in new.split("\n"))
-    used = {name for a in DP.ABLATIONS.values() for name in a}
+    used = {name for a in PROBE_COPIES.values() for name in a}
     assert set(re.findall(r"// \[probe:([^\]]+)\]", source)) == used
 
 

@@ -336,9 +336,12 @@ def plan(x, w_q, stride: int = 1, epilogue_dtype=torch.float32):
 def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype,
             lib=None):
     """The kernel's launch. ``lib``: another build of csrc/conv_int8.cu
-    (ops/kernels/direct_probe.py's), given a scratch tensor whatever the
-    instance (an earlier checkout's 7x7 direct kernel took one)."""
+    (ops/kernels/direct_probe.py's, tools/int8_ablate.py's), given a
+    scratch tensor whatever the instance (an earlier checkout's 7x7 direct
+    kernel took one); its launches are not the kernel's and are not
+    counted."""
     global launches, launches_direct
+    own = lib is None
     batch, cin, h, w = x.shape
     cout, k = w_q.shape[0], w_q.shape[-1]
     y = torch.empty(_out_shape(x, w_q, stride, pad), dtype=epilogue_dtype,
@@ -364,8 +367,9 @@ def _launch(x, w_q, s_x, s_w, b, stride, pad, act, epilogue_dtype,
     if err != 0:
         raise RuntimeError(f"int8 conv kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
-    launches_direct += direct
+    if own:
+        launches += 1
+        launches_direct += direct
     return y
 
 
@@ -477,6 +481,7 @@ def plan_q(xq, w_q, int8_out: bool = True, stride: int = 1):
 def _launch_q(xq, s_in, w_q, s_w, b, stride, pad, act, s_out, lib=None):
     """The kernel's launch; ``lib`` as ``_launch``'s."""
     global launches_q, launches_direct
+    own = lib is None
     batch, cin, h, w = xq.shape
     cout, k = w_q.shape[0], w_q.shape[-1]
     int8_out = s_out is not None
@@ -498,6 +503,7 @@ def _launch_q(xq, s_in, w_q, s_w, b, stride, pad, act, s_out, lib=None):
     if err != 0:
         raise RuntimeError(f"int8-in conv kernel launch failed: CUDA error "
                            f"{err}")
-    launches_q += 1
-    launches_direct += direct
+    if own:
+        launches_q += 1
+        launches_direct += direct
     return y

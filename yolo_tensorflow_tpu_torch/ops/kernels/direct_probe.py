@@ -122,28 +122,30 @@ def marker(name: str) -> str:
     return f"// [probe:{name}]"
 
 
-def patched_source(ablation: str, csrc: Path = None) -> str:
+def patched_source(ablation, csrc: Path = None) -> str:
     """conv_int8.cu with ``ablation``'s text inserted at its markers, each
-    line indented as the marker; raises if a marker is not in the
-    source."""
+    line indented as the marker; raises if a marker is not in the source.
+    ``ablation`` names a copy of ABLATIONS, or is a copy's own mapping of
+    marker to text (tools/int8_ablate.py keeps its copies so)."""
+    texts = ABLATIONS[ablation] if isinstance(ablation, str) else ablation
     lines = ((csrc or build.CSRC_DIR) / SOURCE).read_text().split("\n")
-    for name, text in ABLATIONS[ablation].items():
+    for name, text in texts.items():
         at = [i for i, line in enumerate(lines)
               if line.strip() == marker(name)]
         if not at:
-            raise ValueError(f"{ablation}: {marker(name)} is not in "
-                             f"{SOURCE}")
+            raise ValueError(f"{marker(name)} is not in {SOURCE}")
         for i in at:
             indent = lines[i][:len(lines[i]) - len(lines[i].lstrip())]
             lines[i] = "\n".join(indent + t for t in text.split("\n"))
     return "\n".join(lines) + (_PROF_TAIL if ablation == "prof" else "")
 
 
-def start_build(name: str, csrc: Path = None, ablation: str = None,
+def start_build(name: str, csrc: Path = None, ablation=None,
                 source: str = SOURCE):
     """Start nvcc on ``source`` alone (conv_int8.cu unless named; of
-    ``csrc``, by default the package's; altered by ``ablation``) into
-    ``_build/probe/<name>.so``. Returns the job for finish_build."""
+    ``csrc``, by default the package's; altered by ``ablation``, as
+    ``patched_source`` takes it) into ``_build/probe/<name>.so``. Returns
+    the job for finish_build."""
     csrc = Path(csrc or build.CSRC_DIR)
     work = PROBE_DIR / name
     shutil.rmtree(work, ignore_errors=True)

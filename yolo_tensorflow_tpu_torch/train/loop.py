@@ -465,21 +465,23 @@ def loss_and_grads(cfg: C.ModelConfig, specs, network, images, truths, *,
                    ignore_thresh: float = 0.5, compute_dtype=None,
                    bn_stats: str = "twopass", marks=None, seen=None,
                    generator=None, remat_every=None, qat_scales=None,
-                   act_ranges=None, **loss_kw):
+                   act_ranges=None, tf32: bool = False, **loss_kw):
     """One forward and backward: (grads {layer_key: {name: tensor}},
     new batch statistics, metrics). ``images`` uint8 (B, S, S, 3) and
     ``truths`` (B, T, 5), or (B,) labels for a classifier, on the network's
     device. ``seen`` and ``generator`` (dropout, v1's ``random``) go to the
     network and the loss, ``remat_every``, ``qat_scales`` and
     ``act_ranges`` to the network (rematerialization and
-    quantization-aware training, ``engine.TrainNetwork``). ``marks``, if
+    quantization-aware training, ``engine.TrainNetwork``). A float32
+    compute dtype runs its convolutions without TF32 unless ``tf32``,
+    which leaves the card's defaults (cuDNN's TF32). ``marks``, if
     given, is called with
     "forward", "loss" and "backward" as each part is enqueued
     (``chip_smoke.py`` records CUDA events there)."""
     mark = marks or (lambda _: None)
     params = network.params_tree()
     leaves = tree_leaves(params)
-    with L.exact_f32_convs(not L.is_narrow(compute_dtype)
+    with L.exact_f32_convs(not tf32 and not L.is_narrow(compute_dtype)
                            and images.is_cuda):
         x = normalize_images(images, cfg)
         dets, new_stats = network(x, compute_dtype, bn_stats, cfg.bn_eps,
@@ -513,15 +515,18 @@ def make_train_step(cfg: C.ModelConfig, tx, *,
                     ignore_thresh: float = 0.5, compute_dtype=None,
                     specs=None, remat_every: Optional[int] = None,
                     bn_stats: str = "twopass", marks=None,
-                    qat_momentum: float = 0.99, mesh=None, **loss_kw):
+                    qat_momentum: float = 0.99, mesh=None,
+                    tf32: bool = False, **loss_kw):
     """Build (state, images_u8, truths) -> (state, metrics).
 
     The step runs ``loss_and_grads`` with darknet's ``seen`` = step * batch
     (a tensor on the device), the optimizer (``SGD`` or ``DarknetAdam``) and
     the running-stat update m * run + (1 - m) * new (m = cfg.bn_momentum).
-    ``compute_dtype`` None or float32 trains in full float32 (TF32 off);
-    bfloat16 is the TPU package's mixed precision. ``loss_kw`` (v2_variant,
-    region_hyper, detection_hyper, truth_thresh) go to ``loss_for_config``.
+    ``compute_dtype`` None or float32 trains in full float32 (TF32 off;
+    ``tf32`` turns it on, the card's default precision for float32
+    convolutions); bfloat16 is the TPU package's mixed precision.
+    ``loss_kw`` (v2_variant, region_hyper, detection_hyper, truth_thresh)
+    go to ``loss_for_config``.
     ``marks`` also hears "optimizer". ``remat_every`` N keeps every Nth
     layer's output for the backward pass and recomputes the layers between
     (``engine.TrainNetwork``): the same gradients for less activation
@@ -547,7 +552,8 @@ def make_train_step(cfg: C.ModelConfig, tx, *,
                 compute_dtype=compute_dtype, bn_stats=bn_stats, marks=marks,
                 seen=state.step * (images.shape[0] * world),
                 generator=state.generator, remat_every=remat_every,
-                qat_scales=state.qat_scales, act_ranges=ranges, **loss_kw)
+                qat_scales=state.qat_scales, act_ranges=ranges, tf32=tf32,
+                **loss_kw)
         if P.reduces(mesh):
             leaves = tree_leaves(grads)
             replicated = ()
