@@ -139,9 +139,8 @@ failure is caught):
              its plain version, f32 and bf16, at every distinct 3x3
              stride-1 BN conv of yolov2 at each of run_training's
              multi-scale sizes 320..608 (grids 10..19; the 1280 -> 1024
-             conv after the reorg + route among them) at TRAIN_BATCH at
-             416 and BNSTAT_SCALE_BATCH at the other sizes, and of
-             darknet19-256 at CLS_BATCH; the bf16 shapes of yolov2-416
+             conv after the reorg + route among them) at TRAIN_BATCH and
+             of darknet19-256 at CLS_BATCH; the bf16 shapes of yolov2-416
              and darknet19-256 timed (kernel, bound, plain, cuDNN's conv +
              two sums, summed over a training forward);
  20. f32 train families (B): one f32 onepass step at batch 2 on the card
@@ -371,8 +370,9 @@ failure is caught):
              int8_ablate.py, bench_train.py): (a) int8_ablate's probe
              copies of csrc/conv_int8.cu, "folded" and "sol" (their nvcc
              started in phase 2), each equal to its plain version bit for
-             bit at yolov3-416's first conv (the direct kernel) and a 3x3
-             conv at 52^2 (wgmma), B=ABLATE_CHECK_BATCH; (b) its five rows
+             bit at one conv of yolov3-416 for each (instance, BN, kernel
+             size, stride) the copy takes in the walk (the direct first
+             conv among them), B=ABLATE_CHECK_BATCH; (b) its five rows
              (bf16 reference, the kernel's linear epilogue and a leaky
              pass, the fused leaky epilogue, the folded copy, the
              speed-of-light copy) at ABLATE_ROW_BATCH, ABLATE_ROW_ITERS
@@ -380,7 +380,9 @@ failure is caught):
              bf16-ref's: its raw int8 weights overflow bf16), every kernel
              and copy launched; (c) measure_train at BENCH_TRAIN_CELL,
              yolov3-416 bf16: the reference's keys, a finite loss, 33
-             conv_bnstat launches a step.
+             conv_bnstat launches a step; then float32 with TF32 off (None)
+             and on ("float32") at the same cell, finite losses, their
+             steps' ms side by side.
 Then a JSON line describing each kernel (conv3x3_bnstat: launches, ms,
 bound, plain and library ms all over one step each of yolov3 (phases 8 and
 10), yolov2-416 and darknet19-256 (phases 19 and 21), its launches also
@@ -505,7 +507,6 @@ GHOST_N = 8              # phase 38: ghost8, the statistics' images of 32
 BILINEAR_TOL = dict(rtol=1e-6, atol=1e-6)   # phase 38 (c): the layer alone
 HEAD_RTOL = 1e-4         # phase 38 (c): of a head's largest magnitude
 CLS_BATCH = 64           # phase 21: darknet19-256's training batch
-BNSTAT_SCALE_BATCH = 4   # phase 19: yolov2's multi-scale sizes but 416
 RUN_BATCH = 32           # phase 22: run_training's batch ([net] batch=)
 RUN_SCENES = 64          # phase 22: synthetic 480x640 scenes
 # phase 22: the steps traced by torch.profiler, as indices of the run's
@@ -1897,9 +1898,8 @@ def darknet19_bnstat_phase(dev):
     """Phase 19 (A). conv_bnstat against its plain version at Darknet-19's
     shapes, f32 and bf16: every distinct 3x3 stride-1 BN conv of yolov2 at
     each of run_training's multi-scale sizes (320..608, grids 10..19; the
-    1280 -> 1024 conv after the route among them) at TRAIN_BATCH at 416
-    and BNSTAT_SCALE_BATCH at the others, and of darknet19-256 at
-    CLS_BATCH. The bf16 shapes of yolov2-416 and
+    1280 -> 1024 conv after the route among them) at TRAIN_BATCH, and of
+    darknet19-256 at CLS_BATCH. The bf16 shapes of yolov2-416 and
     darknet19-256 are timed: kernel, bound, plain and cuDNN's conv + two
     sums, summed over a training forward's launches. Returns (max |y err|,
     {model: Counter of those sums})."""
@@ -1912,8 +1912,7 @@ def darknet19_bnstat_phase(dev):
     v2_specs, cls_specs = C.build_specs(v2), C.build_specs(cls)
     require(v2.input_size in runner.MULTISCALE_SIZES,
             f"{v2.input_size} is not a multi-scale size")
-    groups = [("yolov2", s, TRAIN_BATCH if s == v2.input_size
-               else BNSTAT_SCALE_BATCH, bnstat_shapes(
+    groups = [("yolov2", s, TRAIN_BATCH, bnstat_shapes(
                    v2_specs, dataclasses.replace(v2, input_size=s)))
               for s in runner.MULTISCALE_SIZES] + [
         ("darknet19-classifier", cls.input_size, CLS_BATCH,
@@ -1960,8 +1959,7 @@ def darknet19_bnstat_phase(dev):
     grids = [s // 32 for s in runner.MULTISCALE_SIZES]
     print(f"[19 bnstat darknet19] {cases} cases (yolov2 at "
           f"{list(runner.MULTISCALE_SIZES)}, head grids {grids}, B="
-          f"{TRAIN_BATCH} at {v2.input_size}, {BNSTAT_SCALE_BATCH} at the "
-          f"others; darknet19-256 B={CLS_BATCH}; f32 and bf16) equal "
+          f"{TRAIN_BATCH}; darknet19-256 B={CLS_BATCH}; f32 and bf16) equal "
           f"to plain within BNSTAT_TOL, max |y err| {max_err:.3g}; "
           f"(instance, BN) taken: {dict(used)}")
     for model, tot in tots.items():
@@ -6715,7 +6713,8 @@ def shapes_generator(scenes):
             seen |= set(cls.astype(int).tolist())
         dt = time.perf_counter() - t0
         print(f"[37 shapes] (a) {scenes} hard scenes at {size}: "
-              f"{scenes / dt:.1f} scenes/s on the host, {n_boxes} boxes, "
+              f"{scenes / dt:.1f} scenes/s on the host (beside (c)'s "
+              f"flagship process), {n_boxes} boxes, "
               f"{len(seen)} of 12 classes, every box inside with positive "
               "extent")
     bad = sorted(m for m in sys.modules if m.split(".")[0] == "cv2")
@@ -6753,7 +6752,9 @@ def shapes_demo(dev):
           f"yolov3-tiny) easy, f32: "
           + ", ".join(f"{k} {v:.4f}" for k, v in legs.items())
           + f" (floor {DEMO_FLOOR} on the float leg); {dt:.1f} s; hand "
-          f"kernel launches {launched}")
+          f"kernel launches {launched}; its img/s lines above were taken "
+          "beside (c)'s flagship process, which shares the card and the "
+          "host")
     return launched
 
 
@@ -7642,15 +7643,17 @@ def int8_ablate_phase(cfg, dev, smi, n_fused, copy_jobs):
     """Phase 40: yolo_tensorflow_tpu_torch/tools/int8_ablate.py and
     tools/bench_train.py. (a) The probe copies ``folded`` and ``sol``
     (``copy_jobs``: their nvcc, started in phase 2) against their plain
-    versions,
-    bit for bit, at yolov3-416's first conv (the direct kernel) and a 3x3
-    conv at 52^2 (the wgmma main loop), B=ABLATE_CHECK_BATCH; (b) the five
+    versions, bit for bit, at each conv of ``int8_ablate.copy_cases``
+    (one for each instance, BN, kernel size and stride a copy takes in
+    the walk; the direct first conv among them), B=ABLATE_CHECK_BATCH;
+    (b) the five
     rows at ABLATE_ROW_BATCH, ABLATE_ROW_ITERS chained iterations: img/s,
     device ms, finite sums (bf16-ref's raw w_q weights overflow bf16 at
     full depth, as the reference's row does: its sum is printed), every
     kernel and copy launched over the rows; (c) measure_train at
     BENCH_TRAIN_CELL, yolov3-416 bf16: the reference's keys, a finite loss,
-    conv_bnstat launched once a fused conv a step. Returns the launches
+    conv_bnstat launched once a fused conv a step; then float32 with TF32
+    off (None) and on ("float32"), finite losses. Returns the launches
     over (b) and (c) (conv2d_int8, its direct kernel, conv_bnstat)."""
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_bnstat as BS
     from yolo_tensorflow_tpu_torch.tools import bench_train as TB
@@ -7722,6 +7725,15 @@ def int8_ablate_phase(cfg, dev, smi, n_fused, copy_jobs):
           f"img/s, {cell['step_ms']} ms a step, warm-up "
           f"{cell['compile_s']} s, loss finite; {bnstat} conv_bnstat "
           f"launches; on {smi}")
+    f32 = {dt: TB.measure_train(model, cfg.input_size, compute_dtype=dt,
+                                device=dev.type, **BENCH_TRAIN_CELL)
+           for dt in (None, "float32")}
+    require(all(c["loss_finite"] and set(c) == keys for c in f32.values()),
+            f"40 (c) measure_train float32: {f32}")
+    exact, tf32 = f32[None]["step_ms"], f32["float32"]["step_ms"]
+    print(f"[40 bench_train (c)] measure_train at the same cell in float32: "
+          f"TF32 off (None) {exact} ms a step, TF32 on (\"float32\") "
+          f"{tf32} ms a step ({exact / tf32:.2f}x), losses finite")
     print(f"[40 int8_ablate] {time.perf_counter() - t0:.1f} s")
     return {"int8": launched["int8"], "direct": launched["int8_direct"],
             "bnstat": bnstat}

@@ -205,6 +205,42 @@ def test_folded_plain_is_the_reference_formula():
     np.testing.assert_array_equal(_np(got), np.asarray(want, np.float32))
 
 
+@pytest.mark.parametrize("name", SPECS)
+def test_copy_cases_cover_the_walk(name):
+    """``copy_cases`` takes exactly one conv for each (copy, instance, BN,
+    kernel size, stride, activation) of the walk's quantized convs, and
+    ``check_copies`` holds each of them (plain against plain here)."""
+    from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
+    _, specs = model(name, SIZE)
+    port, _ = folded_params(specs, SIZE)
+    qp = IA.prepare(specs, TQ.quantize_params(specs, port, _scales(specs)),
+                    "cpu")
+    cases = IA.copy_cases(specs, qp, SIZE)
+    taken = [(c, *plan, specs[i].size, specs[i].stride, IA._leaky(specs[i]))
+             for c, i, _, _, plan in cases]
+    assert len(taken) == len(set(taken))
+    walked = set()
+    for i, sp in enumerate(specs):
+        p = qp.get(TE.layer_key(i), {})
+        if isinstance(sp, TS.Conv) and "w_q" in p:
+            xq = torch.empty(16, dtype=torch.int8)
+            for c, plan in (("folded", Q8.plan(xq, p["w_q"], sp.stride,
+                                               torch.bfloat16)),
+                            ("sol", Q8.plan_q(xq, p["w_q"], True,
+                                              sp.stride))):
+                walked.add((c, *plan, sp.size, sp.stride, IA._leaky(sp)))
+    assert set(taken) == walked
+    checked = IA.check_copies(specs, qp, SIZE, "cpu", batch=1)
+    assert len(checked) == len(cases)
+    assert all(d == 0.0 for *_, d in checked.values())
+
+
+def test_walk_refuses_a_layer_it_does_not_walk():
+    with pytest.raises(NotImplementedError, match="Reorg"):
+        IA.walk(None, [TS.Conv(8, 3), TS.Reorg()], {},
+                "int8-v1-bf16-epilogue")
+
+
 @pytest.mark.parametrize("sums,pixel", [((3.0, 0.25), 255), ((-5.5, 0.0), 7),
                                         ((4.0, 0.75), 255)])
 def test_chained_input_update(sums, pixel):

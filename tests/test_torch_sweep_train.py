@@ -20,6 +20,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from tools import sweep_train as JSW
 from yolo_tensorflow_tpu_torch.tools import bench_train as TB
@@ -100,3 +101,22 @@ def test_measure_train_on_the_cpu():
     assert (r["batch"], r["steps_per_dispatch"], r["model"], r["size"],
             r["compute_dtype"]) == (2, 2, "yolov3-tiny", 64, "bfloat16")
     assert len(r["spread_img_per_sec"]) == 1
+
+
+@pytest.mark.parametrize("dtype,tf32,tag", [(None, False, "float32-exact"),
+                                            ("float32", True, "float32")])
+def test_measure_train_float32_modes(monkeypatch, dtype, tf32, tag):
+    """None trains float32 with TF32 off, "float32" builds its step with
+    ``tf32`` on (the card's default precision; the CPU has no TF32)."""
+    from yolo_tensorflow_tpu_torch.train import loop
+    built, real = [], loop.make_multi_step
+
+    def make_multi_step(*a, **kw):
+        built.append(kw)
+        return real(*a, **kw)
+    monkeypatch.setattr(loop, "make_multi_step", make_multi_step)
+    r = TB.measure_train("yolov3-tiny", 64, batch=2, steps=2, repeats=1,
+                         compute_dtype=dtype, device="cpu")
+    assert [(kw["compute_dtype"], kw["tf32"]) for kw in built] == [
+        (None if dtype is None else torch.float32, tf32)]
+    assert r["loss_finite"] and r["compute_dtype"] == tag

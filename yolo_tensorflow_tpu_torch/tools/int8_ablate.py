@@ -31,7 +31,9 @@ converts to each output type), launched through
 ``conv_int8._launch(..., lib)`` and ``_launch_q(..., lib)``. They are
 formulations for measurement, not kernels of a serving path; on a CPU
 tensor each runs its plain version (``folded_plain``, ``sol_plain``).
-``check_copies`` holds each copy to its plain version exactly.
+``check_copies`` holds each copy to its plain version exactly, at one
+conv of each distinct kernel instance, tile, kernel size and stride that
+the walk gives it.
 
 Each row is measured as the reference measures it: a chained call runs
 ``iters`` forwards, each iteration's uint8 input shifted by int(sum of the
@@ -284,15 +286,21 @@ def walk(cfg, specs, qp, row):
     """images uint8 (B, S, S, 3) -> the head convs' outputs, channels-last
     (the reference's ``apply_with``): bf16 normalized input, each quantized
     conv by ``row``'s formulation, the head convs by ``float_conv``. Only
-    the outputs that a later route or shortcut reads are kept."""
+    the outputs that a later route or shortcut reads are kept. A layer of
+    another type than those it walks raises NotImplementedError."""
     import torch
     from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.models import specs as S
     from yolo_tensorflow_tpu_torch.ops import layers as L
     from yolo_tensorflow_tpu_torch.pipeline import normalize_images
     conv = CONVS[row]
+    handled = (S.Conv, S.MaxPool, S.Route, S.Shortcut, S.Upsample, S.Detect)
     keep = set()
     for i, spec in enumerate(specs):
+        if not isinstance(spec, handled):
+            raise NotImplementedError(
+                f"int8_ablate walks {[t.__name__ for t in handled]} only; "
+                f"layer {i} is a {type(spec).__name__}")
         if isinstance(spec, S.Route):
             keep |= {S.resolve_ref(r, i) for r in spec.refs}
         elif isinstance(spec, S.Shortcut):
@@ -391,54 +399,70 @@ def model_params(model, size, device):
                                                         scales), device)
 
 
-def check_copies(specs, qp, size, device, batch=8, seed=40) -> dict:
-    """Each copy against its plain version on seeded inputs at the first
-    conv (the direct kernel at Cin = 3) and at the first 3x3 stride-1 conv
-    at 52^2 or less (the wgmma main loop), bit for bit; raises where one
-    differs. Returns {"copy layer": (instance, BN, max |diff|)}."""
+def copy_cases(specs, qp, size) -> list:
+    """The convs ``check_copies`` takes: for each copy, the first quantized
+    conv of the walk at each distinct (instance, BN, kernel size, stride,
+    activation) that the copy launches there (the instance and BN from
+    ``conv_int8.plan`` for ``folded``'s bf16 out and ``plan_q`` for
+    ``sol``'s int8 out, on operands as fresh as the walk's). A list of
+    (copy, layer, Cin, input height, (instance, BN))."""
     import torch
     from yolo_tensorflow_tpu_torch.models import engine
     from yolo_tensorflow_tpu_torch.models import specs as S
     from yolo_tensorflow_tpu_torch.ops.kernels import conv_int8 as Q8
     shapes = engine.infer_shapes(specs, (1, size, size, 3))
-    picks = []
+    seen, out = set(), []
     for i, spec in enumerate(specs):
-        cin, h = (shapes[i - 1][3], shapes[i - 1][1]) if i else (3, size)
         p = qp.get(engine.layer_key(i), {})
-        if isinstance(spec, S.Conv) and "w_q" in p and (not picks or (
-                spec.size == 3 and spec.stride == 1 and h <= 52)):
-            picks.append((i, cin, h))
-        if len(picks) == 2:
-            break
+        if not (isinstance(spec, S.Conv) and "w_q" in p):
+            continue
+        cin, h = (shapes[i - 1][3], shapes[i - 1][1]) if i else (3, size)
+        fresh = torch.empty(16, dtype=torch.int8, device=p["w_q"].device)
+        plans = {"folded": Q8.plan(fresh, p["w_q"], spec.stride,
+                                   torch.bfloat16),
+                 "sol": Q8.plan_q(fresh, p["w_q"], True, spec.stride)}
+        for name, plan in plans.items():
+            key = (name, *plan, spec.size, spec.stride, _leaky(spec))
+            if key not in seen:
+                seen.add(key)
+                out.append((name, i, cin, h, plan))
+    return out
+
+
+def check_copies(specs, qp, size, device, batch=8, seed=40) -> dict:
+    """Each copy against its plain version on seeded inputs, bit for bit,
+    at every conv of ``copy_cases`` (the direct first conv, and the wgmma
+    and gather main loops at each BN, kernel size and stride the walk
+    gives them) at ``batch`` images; raises where one differs. Returns
+    {"copy layer": (instance, BN, max |diff|)}."""
+    import torch
+    from yolo_tensorflow_tpu_torch.models import engine
     gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
-    for i, cin, h in picks:
+    for name, i, cin, h, plan in copy_cases(specs, qp, size):
         spec, p = specs[i], qp[engine.layer_key(i)]
-        pad = spec.size // 2 if spec.pad < 0 else spec.pad
-        x = (torch.randn((batch, cin, h, h), generator=gen, device=device)
-             * 2).to(torch.bfloat16).contiguous(
-                 memory_format=torch.channels_last)
-        xq = torch.randint(-127, 128, (batch, cin, h, h), generator=gen,
-                           device=device).to(torch.int8).contiguous(
-                               memory_format=torch.channels_last)
-        kw = dict(stride=spec.stride, pad=pad)
-        pairs = {
-            "folded": (folded_conv(x, p["w_q"], p["s_x"], p["s_w"],
-                                   p["b_over_s"], act=_leaky(spec), **kw),
-                       folded_plain(x, p["w_q"], p["s_x"], p["s_w"],
-                                    p["b_over_s"], act=_leaky(spec), **kw),
-                       Q8.plan(x, p["w_q"], spec.stride, torch.bfloat16)),
-            "sol": (sol_conv(xq, p["w_q"], p["s_w"], p["b"], **kw),
-                    sol_plain(xq, p["w_q"], **kw),
-                    Q8.plan_q(xq, p["w_q"], True, spec.stride))}
-        for name, (got, want, plan) in pairs.items():
-            diff = float((got.float() - want.float()).abs().max())
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"int8_ablate: the {name} copy differs from its plain "
-                    f"version at layer {i} ({plan}): max |diff| {diff}")
-            out[f"{name} L{i:03d} {spec.size}x{spec.size} {cin}->"
-                f"{spec.filters} at {h}^2"] = (*plan, diff)
+        kw = dict(stride=spec.stride,
+                  pad=spec.size // 2 if spec.pad < 0 else spec.pad)
+        if name == "folded":
+            x = (torch.randn((batch, cin, h, h), generator=gen,
+                             device=device) * 2).to(torch.bfloat16)
+            x = x.contiguous(memory_format=torch.channels_last)
+            args = (x, p["w_q"], p["s_x"], p["s_w"], p["b_over_s"])
+            got = folded_conv(*args, act=_leaky(spec), **kw)
+            want = folded_plain(*args, act=_leaky(spec), **kw)
+        else:
+            xq = torch.randint(-127, 128, (batch, cin, h, h), generator=gen,
+                               device=device).to(torch.int8).contiguous(
+                                   memory_format=torch.channels_last)
+            got = sol_conv(xq, p["w_q"], p["s_w"], p["b"], **kw)
+            want = sol_plain(xq, p["w_q"], **kw)
+        diff = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"int8_ablate: the {name} copy differs from its plain "
+                f"version at layer {i} ({plan}): max |diff| {diff}")
+        out[f"{name} L{i:03d} {spec.size}x{spec.size}/{spec.stride} "
+            f"{cin}->{spec.filters} at {h}^2"] = (*plan, diff)
     return out
 
 
